@@ -1,0 +1,24 @@
+"""f3d_gaus_torch: the PyTorch/CUDA port of f3d_gaus_tpu for NVIDIA Hopper.
+
+The JAX package `f3d_gaus_tpu` stays the reference; this package mirrors its
+layout and public names module by module, so each function here has a
+counterpart of the same name there.  It imports `torch` and never `jax`,
+and nothing of `f3d_gaus_tpu`.
+
+Layer map (bottom to top):
+  core/      cameras (numpy), quaternions, SH, per-Gaussian preprocess
+  ops/       tile binning and the GOF compositing forward; the compositing
+             runs in a hand-written CUDA kernel (csrc/raster_fwd.cu, built
+             with nvcc on first CUDA use) and in a plain PyTorch version for
+             CPU tensors
+  models/    SongUNet predictor as nn.Modules keyed by the reference's
+             torch state_dict names, plus the JAX -> torch weight converter
+  pipeline/  config, demo dataset, renderer wrappers, cycle aggregation + NVS
+  io/        PLY export (numpy)
+  cli.py     single image -> Gaussians -> NVS orbit frames
+
+Entry points run on `cuda` unless the caller passes `device="cpu"` (or CPU
+tensors); without a card they raise.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,63 @@
+"""Spherical-harmonics color evaluation (counterpart of
+f3d_gaus_tpu/core/sh.py).
+
+shs has shape (..., K, 3) with K = (deg+1)^2, band order (0,0), (1,-1),
+(1,0), (1,1), ...  Colors are `max(SH(dir) + 0.5, 0)`.
+"""
+from __future__ import annotations
+
+import torch
+
+SH_C0 = 0.28209479177387814
+SH_C1 = 0.4886025119029199
+SH_C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
+         -1.0925484305920792, 0.5462742152960396)
+SH_C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
+         0.3731763325901154, -0.4570457994644658, 1.445305721320277,
+         -0.5900435899266435)
+
+
+def eval_sh(deg: int, shs: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """Evaluate SH color. shs: (..., K, 3); dirs: (..., 3) unit vectors.
+    Returns the un-clamped color + 0.5."""
+    result = SH_C0 * shs[..., 0, :]
+    if deg > 0:
+        x = dirs[..., 0:1]
+        y = dirs[..., 1:2]
+        z = dirs[..., 2:3]
+        result = (result - SH_C1 * y * shs[..., 1, :]
+                  + SH_C1 * z * shs[..., 2, :] - SH_C1 * x * shs[..., 3, :])
+        if deg > 1:
+            xx, yy, zz = x * x, y * y, z * z
+            xy, yz, xz = x * y, y * z, x * z
+            result = (result
+                      + SH_C2[0] * xy * shs[..., 4, :]
+                      + SH_C2[1] * yz * shs[..., 5, :]
+                      + SH_C2[2] * (2.0 * zz - xx - yy) * shs[..., 6, :]
+                      + SH_C2[3] * xz * shs[..., 7, :]
+                      + SH_C2[4] * (xx - yy) * shs[..., 8, :])
+            if deg > 2:
+                result = (result
+                          + SH_C3[0] * y * (3.0 * xx - yy) * shs[..., 9, :]
+                          + SH_C3[1] * xy * z * shs[..., 10, :]
+                          + SH_C3[2] * y * (4.0 * zz - xx - yy) * shs[..., 11, :]
+                          + SH_C3[3] * z * (2.0 * zz - 3.0 * xx - 3.0 * yy)
+                          * shs[..., 12, :]
+                          + SH_C3[4] * x * (4.0 * zz - xx - yy) * shs[..., 13, :]
+                          + SH_C3[5] * z * (xx - yy) * shs[..., 14, :]
+                          + SH_C3[6] * x * (xx - 3.0 * yy) * shs[..., 15, :])
+    return result + 0.5
+
+
+def sh_color_from_gaussians(deg: int, shs: torch.Tensor, means: torch.Tensor,
+                            campos: torch.Tensor):
+    """Per-Gaussian RGB from SH, viewing direction mean - campos.
+    Returns (rgb clamped at 0, clamped mask)."""
+    dirs = means - campos
+    # smoothed norm: a Gaussian AT the camera (unet_depth 0 in the cycle
+    # feed) has |dirs| = 0; sqrt(|d|^2 + eps) keeps the value finite (such
+    # points are frustum-culled downstream), as in the JAX package
+    norm = torch.sqrt(torch.sum(dirs * dirs, dim=-1, keepdim=True) + 1e-16)
+    dirs = dirs / norm
+    raw = eval_sh(deg, shs, dirs)
+    return torch.clamp_min(raw, 0.0), raw < 0

@@ -1,0 +1,106 @@
+"""f3d_gaus_torch.core against f3d_gaus_tpu.core on the same numpy inputs:
+preprocess values at 1e-5 of max |ref| with radii exactly equal, SH
+evaluation, quaternions and the numpy camera copy (bit-equal)."""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from f3d_gaus_tpu.core import cameras as Jcam
+from f3d_gaus_tpu.core import gaussians as JG
+from f3d_gaus_tpu.core import quaternions as JQ
+from f3d_gaus_tpu.core import sh as JSH
+from f3d_gaus_torch.core import cameras as Tcam
+from f3d_gaus_torch.core import gaussians as TG
+from f3d_gaus_torch.core import quaternions as TQ
+from f3d_gaus_torch.core import sh as TSH
+from tests.conftest import make_gaussian_cloud
+from tests.test_rasterize_parity import _setup
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return np.abs(a - b).max() / (np.abs(a).max() + 1e-12)
+
+
+@pytest.mark.parametrize("n,width", [(96, 32), (2048, 64), (48, 2560)])
+def test_preprocess_matches_jax(n, width):
+    cam, cloud = _setup(np.random.default_rng(n), n=n, width=width)
+    pj = JG.preprocess(*[jnp.asarray(a) for a in cloud], 1, cam)
+    pt = TG.preprocess(*[torch.from_numpy(a) for a in cloud], 1, cam,
+                       compute_v2g=True)
+    for f in pj._fields:
+        a, b = np.asarray(getattr(pj, f)), getattr(pt, f).numpy()
+        assert a.shape == b.shape, f
+        if a.dtype.kind in "bi":
+            np.testing.assert_array_equal(b, a, err_msg=f)
+        else:
+            assert _rel(a, b) <= 1e-5, f
+
+
+def test_preprocess_small_camera(gaussian_cloud, small_camera):
+    """The conftest camera (rebased orbit view) with culled points mixed in:
+    a third of the cloud is moved behind the camera."""
+    cloud = [a.copy() for a in gaussian_cloud]
+    cloud[0][::3, 2] = -3.0
+    pj = JG.preprocess(*[jnp.asarray(a) for a in cloud], 1, small_camera)
+    pt = TG.preprocess(*[torch.from_numpy(a) for a in cloud], 1, small_camera)
+    np.testing.assert_array_equal(pt.radii.numpy(), np.asarray(pj.radii))
+    assert (pt.radii.numpy()[::3] == 0).all()
+    for f in ("means2d", "conic", "opa_coef", "rgb", "v2g_mb", "depths"):
+        assert _rel(getattr(pj, f), getattr(pt, f).numpy()) <= 1e-5, f
+
+
+@pytest.mark.parametrize("deg", [0, 1, 2, 3])
+def test_eval_sh_matches_jax(deg):
+    rng = np.random.default_rng(deg)
+    shs = rng.normal(size=(200, (deg + 1) ** 2, 3)).astype(np.float32)
+    dirs = rng.normal(size=(200, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    a = JSH.eval_sh(deg, jnp.asarray(shs), jnp.asarray(dirs))
+    b = TSH.eval_sh(deg, torch.from_numpy(shs), torch.from_numpy(dirs))
+    np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-6)
+
+
+def test_sh_color_at_camera_is_finite():
+    """A Gaussian AT the camera center keeps a finite color (smoothed norm)."""
+    means, _, _, _, shs = make_gaussian_cloud(np.random.default_rng(1), 8)
+    campos = means[3].copy()
+    a, ca = JSH.sh_color_from_gaussians(1, jnp.asarray(shs), jnp.asarray(means),
+                                        jnp.asarray(campos))
+    b, cb = TSH.sh_color_from_gaussians(1, torch.from_numpy(shs),
+                                        torch.from_numpy(means),
+                                        torch.from_numpy(campos))
+    assert torch.isfinite(b).all()
+    np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-6)
+    np.testing.assert_array_equal(cb.numpy(), np.asarray(ca))
+
+
+def test_quaternions_match_jax():
+    rng = np.random.default_rng(2)
+    a = rng.normal(size=(64, 4)).astype(np.float32)
+    b = rng.normal(size=(64, 4)).astype(np.float32)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    np.testing.assert_allclose(TQ.quat_multiply(ta, tb).numpy(),
+                               np.asarray(JQ.quat_multiply(a, b)), atol=1e-6)
+    np.testing.assert_allclose(TQ.quat_to_rotmat(ta).numpy(),
+                               np.asarray(JQ.quat_to_rotmat(a)), atol=1e-5)
+    np.testing.assert_allclose(TQ.quat_normalize(ta).numpy(),
+                               np.asarray(JQ.quat_normalize(a)), atol=1e-6)
+    R = TQ.quat_to_rotmat(TQ.quat_normalize(ta))
+    np.testing.assert_allclose((R @ R.transpose(1, 2)).numpy(),
+                               np.broadcast_to(np.eye(3), (64, 3, 3)), atol=1e-5)
+
+
+def test_camera_copy_is_bit_equal():
+    cj, ij = Jcam.canonical_camera_set(13.164, 7.667, 7.667, 6.667, 8.667)
+    ct, it = Tcam.canonical_camera_set(13.164, 7.667, 7.667, 6.667, 8.667)
+    np.testing.assert_array_equal(it, ij)
+    for x, y in zip(cj, ct):
+        np.testing.assert_array_equal(y, np.asarray(x))
+    oj = Jcam.orbit_camera_set(129, 13.164, 7.667, 7.667, 6.667, 8.667,
+                               rebase=ij)
+    ot = Tcam.orbit_camera_set(129, 13.164, 7.667, 7.667, 6.667, 8.667,
+                               rebase=it)
+    for x, y in zip(oj, ot):
+        np.testing.assert_array_equal(y, np.asarray(x))
