@@ -5,23 +5,45 @@
 
 Phases, one JSON line each:
   1. environment: torch, CUDA, nvcc, the card; builds csrc/raster_fwd.cu
-     anew for sm_90a and prints ptxas's register/shared-memory line;
-  2. kernel vs plain: the compositing kernel against its plain PyTorch
-     version on the same inputs, on the 32^2 cases of tests/torch_cases.py
+     and csrc/raster_bwd.cu anew for sm_90a (one nvcc each, in parallel)
+     and prints ptxas's register/shared-memory lines;
+  2. kernel_vs_plain: the compositing forward kernel (K1) against its
+     plain PyTorch version on the 32^2 cases of tests/torch_cases.py
      (out9 and final_T at atol 1e-4, last_pos / max_pos equal) and on the
      256^2 65,536-Gaussian flagship (bench.py's anchor: channels 0-5, 7, 8,
      max error < 2e-2, <= 0.1 % of values above 1e-3);
-  3. main path: cycle.run_nvs_replanned at PipelineConfig() width (256^2,
-     base_dim 128, 8 aggregation views, 128+1 NVS views) with random EDM
-     weights from a seeded torch.Generator on a numpy-made RGB-D input;
-     checks shapes, finiteness, no overflow, and that every render went
-     through the kernel (launch count == (8 + 129) per attempt);
-  4. kernel timing with CUDA events at the main path's two shapes
+     kernel_vs_plain_bwd: the backward kernel (K2) against its plain
+     version on the same inputs and a seeded out9 cotangent (alpha channel
+     zeroed): d_feat and d_stats within 5e-3 x max |g| per column on every
+     32^2 case and on >= 99.9 % of the flagship's Gaussian rows, each row
+     outside holding a pair whose f32 decision can flip (flip_margins);
+     and autograd of a render loss to the five inputs and means2d_stats,
+     kernel path against backend="torch", on the 32^2 cases;
+  3. main_path (serving): cycle.run_nvs_replanned at PipelineConfig() width
+     (256^2, base_dim 128, 8 aggregation views, 128+1 NVS views) with
+     random EDM weights from a seeded torch.Generator on a numpy-made RGB-D
+     input; checks shapes, finiteness, no overflow, and that every render
+     went through K1 (launch count == (8 + 129) per attempt, no K2);
+  4. kernel_timing: K1 with CUDA events at the serving path's two shapes
      (aggregation render, P = 65,536; NVS render, P = 589,824) beside the
      plain version and the bound (operations and bytes this run's data
      needs), whether two launches agree bit for bit, and the split of one
      NVS render into preprocess, binning, compositing and the rest, with
-     a torch.profiler trace of that render.
+     a torch.profiler trace of that render;
+  5. train_path: feedforward.train_step at PipelineConfig() width on
+     TRAIN_BATCH numpy-made RGB-D images (the yaml's 7 does not fit in
+     80 GB), one fixed novel camera, lr 1e-4, TRAIN_STEPS applied steps;
+     the caps double on RenderOverflow (the step runs again, unapplied);
+     checks finite terms, moved parameters, a falling loss, and that K1
+     and K2 each launch 3 times per image per applied step; per-step
+     forward / backward / optimizer seconds and peak allocated memory;
+     then a torch.profiler trace of one more step;
+  6. kernel_timing_bwd: K2 at the training step's two shapes (canonical
+     render, P = 65,536; cycle render, P = 131,072) of image 0 beside the
+     plain backward and the bound, and whether two launches agree bit for
+     bit; K2 held against the plain backward there and, at another
+     cotangent seed, on image 1's two renders: >= 99.7 % of rows within
+     5e-3 x max |g|, each row outside holding a pair that can flip.
 Then the `kernels` line, the card's name and power limit, and last the
 result line.  Any failure raises, so the script exits non-zero and prints
 no result; it also refuses to run without a CUDA device.
@@ -47,7 +69,23 @@ PEAK_BYTES_PER_S = 3.35e12
 # for every contributing pair on top
 OPS_PER_WALKED = 41
 OPS_PER_CONTRIB = 64
+# the same for csrc/raster_bwd.cu: every (pixel, pair) up to the pixel's
+# last contributor repeats the forward's 41-operation decision; a
+# contributing one adds about 181 (T rebuild, dL/dalpha, the pull-back to
+# the 19 monomial rows, the stats, and 22 sums over the pixels)
+OPS_PER_WALKED_BWD = 41
+OPS_PER_CONTRIB_BWD = 181
 TIMED_LAUNCHES = 20        # kernel launches per CUDA-event timing
+# gradient tolerance, x max |g| per column: the JAX package's own
+# (tests/test_pallas_raster.py:51-53); K2's atomics reorder the sums
+GRAD_TOL = 5e-3
+# shares of Gaussian rows K2 must hold within GRAD_TOL, where alpha = 1/255
+# flips move a few (PERF.md): the flagship, and the training step's renders
+FLAGSHIP_ROWS = 0.999
+TRAIN_ROWS = 0.997
+TRAIN_BATCH = 6            # images per step; 7 need ~86.5e9 bytes (PERF.md)
+TRAIN_STEPS = 5            # applied steps (tests/test_feedforward.py:64-95)
+GRAD_NAMES = ("means", "scales", "quats", "opacities", "shs", "means2d_stats")
 
 
 def require(ok, what):
@@ -113,14 +151,13 @@ def pair_work(inp):
     from f3d_gaus_torch.ops import rasterize as R
 
     s, bng = inp.statics, inp.binning
-    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb,
-                                     inp.pre.opa_coef)
+    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa)
     dev = feat.device
     u, v = R._tile_rays(s, dev)
     C = s.chunk
     n = max(-(-s.max_per_tile // C), 1)
-    valid, wfeat = R._gather_windows(feat, bng.point_list, bng.tile_start,
-                                     bng.tile_count, n * C)
+    _, valid, wfeat = R._gather_windows(feat, bng.point_list, bng.tile_start,
+                                        bng.tile_count, n * C)
     valid = valid & (torch.arange(n * C, device=dev) < s.max_per_tile)
     T = torch.ones(u.shape, device=dev)
     live = torch.ones(u.shape, dtype=torch.bool, device=dev)
@@ -167,7 +204,7 @@ def time_kernel(inp, iters, plain_iters):
     from f3d_gaus_torch.ops import rasterize as R
 
     pre, bng, s = inp.pre, inp.binning, inp.statics
-    feat = cuda_raster._all_features(pre.v2g_mb, inp.rgb, pre.opa_coef)
+    feat = cuda_raster._all_features(pre.v2g_mb, inp.rgb, inp.opa).detach()
     args = (bng.point_list, bng.tile_start, bng.tile_count, inp.bg)
     ms = time_ms(lambda: cuda_raster.composite_fwd(feat, *args, s), iters)
     (o1, a1), (o2, a2) = (cuda_raster.composite_fwd(feat, *args, s)
@@ -192,6 +229,255 @@ def time_kernel(inp, iters, plain_iters):
                 plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 **compare(inp, exact=False))
+
+
+def bwd_inputs(inp, seed):
+    """K2's inputs for one prepared render: the feature and conic/means2d
+    tables, the slab, K1's residuals and a seeded out9 cotangent with the
+    alpha channel (7) zeroed, as tests/test_pallas_raster.py:33-34."""
+    import numpy as np
+    import torch
+    from f3d_gaus_torch.ops import cuda_raster
+
+    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
+    extra = torch.cat([inp.pre.conic, inp.pre.means2d], 1).detach()
+    b = inp.binning
+    slab = (b.point_list, b.tile_start, b.tile_count, inp.bg)
+    out, aux = cuda_raster.composite_fwd(feat, *slab, inp.statics)
+    g = np.random.default_rng(seed).normal(size=tuple(out.shape))
+    g[..., 7] = 0.0
+    return feat, extra, slab, aux, torch.from_numpy(g.astype(np.float32)).to(
+        feat.device)
+
+
+def flip_margins(inp, aux):
+    """Each Gaussian's least distance from a decision that two f32
+    evaluations can take differently.  K2 decides each (pixel, pair) with
+    K1's f32 formulas, the plain backward with PyTorch's: where alpha sits
+    at 1/255 or t at the near plane within the f32 error, the two can
+    disagree on whether the pair contributes; where num = |b x Md|^2 sits
+    at 0, on whether its gradient passes the clamp of num.  Either way the
+    pair carries its Gaussian's gradient in that pixel on one side only.
+
+    For every walked pair (window position <= the pixel's last
+    contributor, which both sides take from K1) the f64 evaluation of the
+    same f32 features and rays stands for the exact value, and the margin
+    is its distance from the threshold over a first-order bound on any f32
+    evaluation's error: 6 roundings of the sum of |terms| for each
+    quadratic form, 3 for BB, one for the division, 2 ulp for expf and one
+    for the product with the opacity.  Two f32 evaluations can decide
+    differently only at a margin <= 1.  Returns the (3, P) least margin
+    over each Gaussian's walked pairs by decision (alpha, t, num; inf for
+    none) and the (P,) mask of the Gaussians walked at all."""
+    import numpy as np
+    import torch
+    from f3d_gaus_torch.ops import cuda_raster
+    from f3d_gaus_torch.ops import rasterize as R
+
+    s, b = inp.statics, inp.binning
+    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
+    P, dev = feat.shape[0], feat.device
+    C = s.chunk
+    n = max(-(-s.max_per_tile // C), 1)
+    gids, valid, wfeat = R._gather_windows(feat, b.point_list, b.tile_start,
+                                           b.tile_count, n * C)
+    valid = valid & (torch.arange(n * C, device=dev) < s.max_per_tile)
+    gids = torch.where(valid, gids, P)
+    u, v = (x.double()[..., None] for x in R._tile_rays(s, dev))
+    au, av = u.abs(), v.abs()
+    # the thresholds as the f32 comparisons see them; f32's unit roundoff
+    eps_a, near = float(np.float32(R.ALPHA_EPS)), float(np.float32(R.NEAR_PLANE))
+    ur = 2.0 ** -24
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=dev)
+    tiny = 1e-300
+    margin = torch.full((3, P + 1), float("inf"), dtype=torch.float64,
+                        device=dev)
+    walked_rows = torch.zeros(P + 1, dtype=torch.bool, device=dev)
+
+    def quad(q, U, V):
+        """_chunk_eval's quadratic form of six monomial rows."""
+        return (q[0] * U + q[1] * V + q[3]) * U + (q[2] * V + q[4]) * V + q[5]
+
+    with torch.no_grad():
+        for ci in range(n):
+            sl = slice(ci * C, (ci + 1) * C)
+            f = wfeat[:, None, sl].double()                  # (T, 1, C, NFEAT)
+            qa = [f[..., R.ROW_QA + i] for i in range(6)]
+            qk = [f[..., R.ROW_QK + i] for i in range(6)]
+            bv = [f[..., R.ROW_B + i] for i in range(3)]
+            A, N = quad(qa, u, v), quad(qk, u, v)
+            BB = 2.0 * (bv[0] * u + bv[1] * v + bv[2])
+            dA = 6 * ur * quad([x.abs() for x in qa], au, av)
+            dN = 6 * ur * quad([x.abs() for x in qk], au, av)
+            dB = 3 * ur * 2.0 * (bv[0].abs() * au + bv[1].abs() * av
+                                 + bv[2].abs())
+            A_s = A.clamp_min(1e-12)
+            t = -BB / (2.0 * A_s)
+            mv = N.clamp_min(0.0) / A_s
+            alpha = (f[..., R.ROW_OPA] * torch.exp(-0.5 * mv)).clamp_max(0.99)
+            keep = 1.0 / (1.0 - dA / A_s).clamp_min(tiny)   # AA's error in 1/AA
+            d_t = t.abs() * (dB / BB.abs().clamp_min(tiny) + dA / A_s
+                             + 2 * ur) * keep
+            d_mv = (dN + mv * dA) / A_s * keep + ur * mv
+            d_alpha = alpha * (torch.expm1(0.5 * d_mv) + 6 * ur)
+            t_ok, a_ok = t + d_t > near, alpha + d_alpha >= eps_a
+            # a test can flip the pair only where the other one can pass,
+            # the clamp of num only where the pair can contribute
+            m = torch.stack([
+                torch.where(t_ok, (alpha - eps_a).abs() / d_alpha.clamp_min(tiny), inf),
+                torch.where(a_ok, (t - near).abs() / d_t.clamp_min(tiny), inf),
+                torch.where(a_ok & t_ok, N.abs() / dN.clamp_min(tiny), inf)])
+            pos = torch.arange(ci * C, (ci + 1) * C, device=dev)
+            walked = valid[:, None, sl] & (pos <= aux.last_pos[..., None].long())
+            ids = gids[:, sl].reshape(-1)
+            m = torch.where(walked, m, inf).amin(2).reshape(3, -1)
+            margin.scatter_reduce_(1, ids.expand(3, -1), m, "amin")
+            walked_rows[ids[walked.any(1).reshape(-1)]] = True
+    return margin[:, :P], walked_rows[:P]
+
+
+def grad_agreement(kernel, plain):
+    """K2's (d_feat, d_stats) against the plain version's: the largest
+    absolute error and the share of Gaussian rows whose every column is
+    within GRAD_TOL x that column's largest |g|; and the mask of the rows
+    outside."""
+    import torch
+    k, p = torch.cat(kernel, 1), torch.cat(plain, 1)
+    require(bool(torch.isfinite(k).all()), "finite K2 gradients")
+    err = (k - p).abs()
+    ok = (err <= GRAD_TOL * p.abs().amax(0, keepdim=True)).all(1)
+    return {"max_abs_err": float(err.max()),
+            "max_abs_grad": float(p.abs().max()), "rows": int(ok.numel()),
+            "rows_within_tol": float(ok.float().mean())}, ~ok
+
+
+def held_bwd(inp, args, kernel, plain, min_rows):
+    """grad_agreement, required: at least `min_rows` of the rows within
+    GRAD_TOL and, where that is below 1, each row outside holding a pair
+    whose decision can flip (flip_margins)."""
+    res, bad = grad_agreement(kernel, plain)
+    if min_rows < 1.0:
+        by_kind, walked = flip_margins(inp, args[6])
+        can_flip = by_kind <= 1.0
+        any_flip = can_flip.any(0)
+        res.update(
+            rows_outside_tol=int(bad.sum()),
+            unwitnessed_rows=int((bad & ~any_flip).sum()),
+            outside_tol_can_flip={k: int((bad & can_flip[i]).sum())
+                                  for i, k in enumerate(("alpha", "t", "num"))},
+            walked_rows=int(walked.sum()),
+            walked_rows_can_flip={
+                **{k: int((walked & can_flip[i]).sum())
+                   for i, k in enumerate(("alpha", "t", "num"))},
+                "any": int((walked & any_flip).sum())})
+        require(res["unwitnessed_rows"] == 0, res)
+    require(res["rows_within_tol"] >= min_rows, res)
+    return res
+
+
+def compare_bwd(inp, seed, min_rows=1.0):
+    """K2 against the plain backward on one prepared input (held_bwd)."""
+    import torch
+    from f3d_gaus_torch.ops import cuda_raster
+    from f3d_gaus_torch.ops import rasterize as R
+
+    feat, extra, slab, aux, g = bwd_inputs(inp, seed)
+    args = (feat, extra, *slab, aux, g, inp.statics)
+    k = cuda_raster.composite_bwd(*args)
+    p = R._composite_bwd_impl(*args)
+    torch.cuda.synchronize()
+    return held_bwd(inp, args, k, p, min_rows)
+
+
+def compare_chain(cam, cloud, bg, kw, dev, seed):
+    """Autograd of sum(out9 * w9) to the five inputs and means2d_stats, the
+    kernel path against backend="torch": each input's largest error over
+    its largest |g|, required within GRAD_TOL."""
+    import numpy as np
+    import torch
+    from f3d_gaus_torch.ops import rasterize as R
+
+    w9 = np.random.default_rng(seed).normal(size=(9, cam.height, cam.width))
+    w9[7] = 0.0
+    w9 = torch.from_numpy(w9.astype(np.float32)).to(dev)
+    grads = []
+    for backend in ("auto", "torch"):
+        ts = [torch.from_numpy(a).to(dev).requires_grad_() for a in cloud]
+        ts.append(torch.zeros((cloud[0].shape[0], 3), device=dev,
+                              requires_grad=True))
+        out = R.render(*ts[:5], cam, torch.from_numpy(bg).to(dev),
+                       means2d_stats=ts[5], backend=backend, **kw)
+        (out["out9"] * w9).sum().backward()
+        grads.append([t.grad for t in ts])
+    res = {}
+    for name, k, p in zip(GRAD_NAMES, *grads):
+        scale = float(p.abs().max())
+        res[name] = float((k - p).abs().max()) / max(scale, 1e-30)
+        require(bool(torch.isfinite(k).all()) and res[name] <= GRAD_TOL,
+                f"chain d/d{name}: {res[name]}")
+    return res
+
+
+def time_kernel_bwd(inp, iters, seed):
+    """K2 and plain-backward times on one prepared input, its bound, the
+    agreement and whether two launches agree bit for bit."""
+    import torch
+    from f3d_gaus_torch.ops import cuda_raster
+    from f3d_gaus_torch.ops import rasterize as R
+
+    s, b = inp.statics, inp.binning
+    feat, extra, slab, aux, g = bwd_inputs(inp, seed)
+    args = (feat, extra, *slab, aux, g, s)
+    ms = time_ms(lambda: cuda_raster.composite_bwd(*args), iters)
+    k1, k2 = (cuda_raster.composite_bwd(*args) for _ in range(2))
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(x, y) for x, y in zip(k1, k2))
+    plain = []
+    plain_ms = time_ms(lambda: plain.append(R._composite_bwd_impl(*args)), 1,
+                       warmup=0)
+    agree = held_bwd(inp, args, k1, plain[0], TRAIN_ROWS)
+
+    # the work this input needs: every (pixel, pair) up to the pixel's last
+    # contributor is decided, every contributor pulled back
+    walked = int((aux.last_pos.long() + 1).sum())
+    contrib = pair_work(inp)[1]
+    ops = walked * OPS_PER_WALKED_BWD + contrib * OPS_PER_CONTRIB_BWD
+    # bytes: the ids of each tile's walked window and the 24 columns of each
+    # Gaussian in it read once, the 13 per-pixel inputs, the tile offsets,
+    # and a read-modify-write of each such Gaussian's 22 gradient columns
+    gids, valid, _ = R._gather_windows(feat[:, :1], b.point_list,
+                                       b.tile_start, b.tile_count,
+                                       s.max_per_tile)
+    last = aux.last_pos.amax(1)
+    walked_slots = valid & (torch.arange(s.max_per_tile, device=feat.device)
+                            <= last[:, None])
+    n_ids = int(walked_slots.sum())
+    uniq = int(torch.unique(gids[walked_slots]).numel())
+    tiles = s.grid_x * s.grid_y
+    nbytes = (n_ids * 4 + uniq * (R.NFEAT + 5) * 4 + 2 * tiles * 4 + 3 * 4
+              + tiles * R.PIX * 13 * 4 + uniq * (R.NFEAT + 3) * 4 * 2)
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return dict(P=int(feat.shape[0]), pairs=int(b.num_pairs),
+                max_per_tile=s.max_per_tile, walked_pairs_px=walked,
+                contrib_pairs_px=contrib, ops=ops, bytes=nbytes,
+                bitwise_repeatable=bitwise, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                **agree)
+
+
+def prepared(g, cam, cfg, b=0):
+    """rasterize.prepare of element b of a Gaussian dict at cfg's caps."""
+    import torch
+    from f3d_gaus_torch.ops import rasterize as R
+
+    shs = torch.cat([g["features_dc"][b], g["features_rest"][b]], 1)
+    return R.prepare(g["xyz"][b], g["scaling"][b], g["rotation"][b],
+                     g["opacity"][b], shs, cam,
+                     torch.zeros(3, device=shs.device),
+                     sh_degree=cfg.max_sh_degree, kernel_size=cfg.kernel_size,
+                     pair_cap=cfg.pair_cap, max_per_tile=cfg.max_per_tile,
+                     chunk=cfg.chunk)
 
 
 def render_breakdown(g, cam, cfg, reps=3):
@@ -233,24 +519,20 @@ def render_breakdown(g, cam, cfg, reps=3):
             "render_ms": total_ms}
 
 
-def profile_render(g, cam, cfg):
-    """torch.profiler over one render: the device's busy share of the
-    window and the ten operators with the most device time."""
+def device_profile(run, top=10):
+    """torch.profiler over one call of `run` (warmed up by one call
+    before): the device's busy share of the window and the `top`
+    operators with the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from f3d_gaus_torch.pipeline import renderer
 
-    bg = torch.zeros(3, device=g["xyz"].device)
-
-    def run():
-        renderer.render_gaussians(g, 0, cam.world_view, cam.full_proj,
-                                  cam.cam_center, bg, cfg)
-        torch.cuda.synchronize()
     run()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only (kernels, copies), so no time counts twice
     rows = [(e.key, e.self_device_time_total, e.count)
@@ -261,8 +543,20 @@ def profile_render(g, cam, cfg):
     busy_us = sum(r[1] for r in rows)
     return {"wall_us": wall_us, "device_busy_us": busy_us,
             "busy_share": busy_us / wall_us,
+            "raster_kernels_us": {k: sum(r[1] for r in rows if k in r[0])
+                                  for k in ("raster_fwd", "raster_bwd")},
             "top": [{"op": k[:80], "device_us": t, "calls": c}
-                    for k, t, c in rows[:10]]}
+                    for k, t, c in rows[:top]]}
+
+
+def profile_render(g, cam, cfg):
+    """device_profile of one NVS render."""
+    import torch
+    from f3d_gaus_torch.pipeline import renderer
+
+    bg = torch.zeros(3, device=g["xyz"].device)
+    return device_profile(lambda: renderer.render_gaussians(
+        g, 0, cam.world_view, cam.full_proj, cam.cam_center, bg, cfg))
 
 
 def smooth_rgbd(rng, r):
@@ -284,51 +578,42 @@ def smooth_rgbd(rng, r):
     return img[None].astype(np.float32), depth[None].astype(np.float32)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--num_nvs_views", type=int, default=128)
-    args = ap.parse_args(argv)
-
-    import numpy as np
+def build(card):
+    """Phase 1: the environment, and both kernels built anew."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke.py: no CUDA device; it runs only on the card",
-              file=sys.stderr)
-        return 1
-    sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
-    from f3d_gaus_torch.core.cameras import Camera
-    from f3d_gaus_torch.models import predictor as P
     from f3d_gaus_torch.ops import cuda_raster
-    from f3d_gaus_torch.ops import rasterize as R
-    from f3d_gaus_torch.pipeline import config as C
-    from f3d_gaus_torch.pipeline import cycle
-    from f3d_gaus_torch.pipeline import dataset as D
-    import torch_cases
 
-    dev = torch.device("cuda")
-    card = card_line()
-
-    # 1. environment and build
     nvcc = subprocess.run([cuda_raster._nvcc(), "--version"],
                           capture_output=True, text=True, check=True).stdout
     t0 = time.perf_counter()
     cuda_raster.load(rebuild=True)
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in cuda_raster.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or ln.startswith("[")]
     emit("environment", python=sys.version.split()[0], torch=torch.__version__,
          torch_cuda=torch.version.cuda, nvcc=nvcc.strip().splitlines()[-1],
          card=card, device=torch.cuda.get_device_name(0),
          build_s=build_s, ptxas=ptxas)
 
-    # 2. kernel vs plain version on the card
-    for name, cam, cloud, bg, kw in torch_cases.small_cases(args.seed):
+
+def kernels_vs_plain(dev, seed):
+    """Phase 2: K1 and K2 against their plain versions on the 32^2 cases
+    and the flagship; returns the flagship's K2 agreement."""
+    import numpy as np
+    import torch
+    from f3d_gaus_torch.ops import rasterize as R
+    import torch_cases
+
+    for name, cam, cloud, bg, kw in torch_cases.small_cases(seed):
         inp = R.prepare(*cloud_to(cloud, dev), cam,
                         torch.from_numpy(bg).to(dev), **kw)
         emit("kernel_vs_plain", case=name, tol=1e-4,
              **compare(inp, case=name))
-    cam, cloud = torch_cases.bench_scene(np.random.default_rng(args.seed))
+        res = compare_bwd(inp, seed)
+        emit("kernel_vs_plain_bwd", case=name, tol=f"{GRAD_TOL} x max|g| "
+             "per column", **res,
+             chain_rel_err=compare_chain(cam, cloud, bg, kw, dev, seed))
+    cam, cloud = torch_cases.bench_scene(np.random.default_rng(seed))
     tc = cloud_to(cloud, dev)
     caps = R.plan_caps(*tc[:4], cam)
     inp = R.prepare(*tc, cam, **caps)
@@ -336,9 +621,26 @@ def main(argv=None) -> int:
     emit("kernel_vs_plain", case="flagship_256_65536", caps=caps,
          tol="anchor: channels 0-5,7,8 max < 2e-2, <= 0.1% above 1e-3",
          **compare(inp, exact=False))
+    flag = compare_bwd(inp, seed, FLAGSHIP_ROWS)
+    emit("kernel_vs_plain_bwd", case="flagship_256_65536", caps=caps,
+         tol=f"{GRAD_TOL} x max|g| per column on >= {FLAGSHIP_ROWS} of rows, "
+             "each row outside with a pair that can flip", **flag)
     torch.cuda.synchronize()
+    return flag
 
-    # 3. the main path at full width
+
+def serving_path(args, dev, card):
+    """Phases 3 and 4: run_nvs_replanned at full width with the launch
+    counts set to 0 just before it, then K1's timing at its shapes."""
+    import numpy as np
+    import torch
+    from f3d_gaus_torch.core.cameras import Camera
+    from f3d_gaus_torch.models import predictor as P
+    from f3d_gaus_torch.ops import cuda_raster
+    from f3d_gaus_torch.pipeline import config as C
+    from f3d_gaus_torch.pipeline import cycle
+    from f3d_gaus_torch.pipeline import dataset as D
+
     cfg = dataclasses.replace(C.PipelineConfig(),
                               num_nvs_views=args.num_nvs_views)
     model = P.GaussianPredictor(cfg.predictor_config(),
@@ -351,14 +653,14 @@ def main(argv=None) -> int:
     timings = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cuda_raster.launches = 0
+    cuda_raster.launches = cuda_raster.launches_bwd = 0
     t0 = time.perf_counter()
     res = cycle.run_nvs_replanned(model, cfg, cams, images, depth,
                                   device=dev, log=replans.append,
                                   timings=timings)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = cuda_raster.launches
+    launches, launches_bwd = cuda_raster.launches, cuda_raster.launches_bwd
     peak = torch.cuda.max_memory_allocated()
 
     P_px = cfg.resolution ** 2
@@ -375,8 +677,10 @@ def main(argv=None) -> int:
     require(not bool(res.renders["overflow"].any())
             and not bool(res.agg_views["overflow"].any()),
             "overflow after replanning")
-    require(launches == (n_agg + n_nvs) * res.attempts > 0,
-            f"{launches} kernel launches for {res.attempts} attempts")
+    require(launches == (n_agg + n_nvs) * res.attempts > 0
+            and launches_bwd == 0,
+            f"{launches} K1 / {launches_bwd} K2 launches for {res.attempts} "
+            "attempts")
     emit("main_path", card=card, config="PipelineConfig()",
          num_nvs_views=cfg.num_nvs_views, params=n_params,
          attempts=res.attempts, replans=replans,
@@ -386,7 +690,6 @@ def main(argv=None) -> int:
          stage_s_last_attempt=timings, peak_allocated_bytes=peak,
          merged_points=int(res.merged["xyz"].shape[1]))
 
-    # 4. kernel timing at the main path's shapes
     fcfg = res.cfg
 
     def camera(cams_set, i):
@@ -394,19 +697,11 @@ def main(argv=None) -> int:
                       cams_set.cam_centers[i], fcfg.resolution,
                       fcfg.resolution, fcfg.tan_fov, fcfg.tan_fov)
 
-    def prepared(g, cam):
-        shs = torch.cat([g["features_dc"][0], g["features_rest"][0]], 1)
-        return R.prepare(g["xyz"][0], g["scaling"][0], g["rotation"][0],
-                         g["opacity"][0], shs, cam, torch.zeros(3, device=dev),
-                         sh_degree=fcfg.max_sh_degree,
-                         kernel_size=fcfg.kernel_size, pair_cap=fcfg.pair_cap,
-                         max_per_tile=fcfg.max_per_tile, chunk=fcfg.chunk)
-
     agg_cam = camera(cycle.aggregation_cameras(fcfg, cams.inverse_first_camera), 0)
     nvs_cam = camera(cycle.nvs_cameras(fcfg, cams.inverse_first_camera), 0)
-    shapes = {"aggregation": time_kernel(prepared(res.first, agg_cam),
+    shapes = {"aggregation": time_kernel(prepared(res.first, agg_cam, fcfg),
                                          TIMED_LAUNCHES, 3),
-              "nvs": time_kernel(prepared(res.merged, nvs_cam),
+              "nvs": time_kernel(prepared(res.merged, nvs_cam, fcfg),
                                  TIMED_LAUNCHES, 2)}
     for k, v in shapes.items():
         emit("kernel_timing", card=card, shape=k, **v)
@@ -415,27 +710,182 @@ def main(argv=None) -> int:
          **render_breakdown(res.merged, nvs_cam, fcfg))
     emit("nvs_render_profile", card=card,
          **profile_render(res.merged, nvs_cam, fcfg))
-    main = shapes["nvs"]
+    return launches, shapes, (n_nvs, n_agg + n_nvs)
+
+
+def training_path(args, dev, card):
+    """Phases 5 and 6: feedforward.train_step at full width with the launch
+    counts set to 0 just before the steps, then K2's timing at the
+    canonical and cycle renders of the trained weights."""
+    import numpy as np
+    import torch
+    from f3d_gaus_torch.core.cameras import Camera
+    from f3d_gaus_torch.ops import cuda_raster
+    from f3d_gaus_torch.pipeline import config as C
+    from f3d_gaus_torch.pipeline import dataset as D
+    from f3d_gaus_torch.pipeline import cycle, renderer
+    from f3d_gaus_torch.train import feedforward as F
+
+    cfg, B = C.PipelineConfig(), TRAIN_BATCH
+    state = F.init_state(torch.Generator().manual_seed(args.seed), cfg,
+                         lr=1e-4)
+    # one fixed novel camera keeps the objective the same across steps
+    pack = F.make_cameras_pack(cfg, D.canonical_cameras(cfg), n_banks=1,
+                               views_per_bank=1)
+    rng = np.random.default_rng(args.seed + 1)
+    images, depths = zip(*(smooth_rgbd(rng, cfg.resolution) for _ in range(B)))
+    batch = {"images": torch.from_numpy(np.concatenate(images)).to(dev),
+             "depth": torch.from_numpy(np.concatenate(depths)).to(dev)}
+    p0 = {k: v.detach().clone() for k, v in state.model.named_parameters()}
+    attempts, steps = [], []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_raster.launches = cuda_raster.launches_bwd = 0
+    t_start = time.perf_counter()
+    while len(steps) < TRAIN_STEPS:
+        f0, b0 = cuda_raster.launches, cuda_raster.launches_bwd
+        timings = {}
+        t0 = time.perf_counter()
+        try:
+            loss, aux = F.train_step(state, cfg, batch, pack, timings=timings)
+        except renderer.RenderOverflow as e:
+            require(len(attempts) < cycle.MAX_DOUBLINGS, "caps keep overflowing")
+            cfg = dataclasses.replace(cfg, pair_cap=cfg.pair_cap * 2,
+                                      max_per_tile=cfg.max_per_tile * 2)
+            attempts.append(f"step {state.step}: {e}; caps now "
+                            f"{cfg.pair_cap} / {cfg.max_per_tile}")
+            continue
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        terms = {k: v.item() for k, v in aux.items() if k != "overflow"}
+        require(all(np.isfinite(v) for v in terms.values())
+                and np.isfinite(loss.item()), terms)
+        require(not bool(aux["overflow"].any()), "overflow in an applied step")
+        k1, k2 = cuda_raster.launches - f0, cuda_raster.launches_bwd - b0
+        require(k1 == k2 == 3 * B, f"step launches K1 {k1}, K2 {k2}, B {B}")
+        steps.append({"loss": loss.item(), **terms, "wall_s": wall,
+                      **{f"{k}_s": v for k, v in timings.items()}})
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t_start
+    launches = (cuda_raster.launches, cuda_raster.launches_bwd)
+    peak = torch.cuda.max_memory_allocated()
+    require(launches == (3 * B * (len(steps) + len(attempts)),
+                         3 * B * len(steps)), f"launches {launches}")
+    moved = max(float((v.detach() - p0[k]).abs().max())
+                for k, v in state.model.named_parameters())
+    require(moved > 0, "parameters did not move")
+    require(steps[-1]["loss"] < steps[0]["loss"],
+            f"loss {steps[0]['loss']} -> {steps[-1]['loss']}")
+    emit("train_path", card=card, config="PipelineConfig()", batch=B,
+         lr=1e-4, applied_steps=len(steps), replans=attempts,
+         caps={"pair_cap": cfg.pair_cap, "max_per_tile": cfg.max_per_tile},
+         launches_k1=launches[0], launches_k2=launches[1], total_s=total_s,
+         peak_allocated_bytes=peak, max_param_change=moved, steps=steps)
+    # two more steps, after the counted ones: where a step's time goes
+    emit("train_step_profile", card=card, batch=B, **device_profile(
+        lambda: F.train_step(state, cfg, batch, pack), top=15))
+
+    # K2 at the step's two shapes: the canonical and cycle renders of
+    # images 0 (timed) and 1
+    cam = Camera(pack.cano_wv, pack.cano_fp, pack.cano_cc, cfg.resolution,
+                 cfg.resolution, cfg.tan_fov, cfg.tan_fov)
+    v2w, quat, wv, fp, cc = F.select_novel_camera(pack, state.step,
+                                                  F.Curriculum())
+
+    @torch.no_grad()
+    def renders_of(i):
+        target = batch["images"][i:i + 1].permute(0, 3, 1, 2)
+        depth = batch["depth"][i:i + 1]
+        g = F._predict(state.model, target, torch.ones_like(target[:, :1]),
+                       depth, pack.cano_v2w, pack.cano_quat)
+        o = renderer.render_gaussians(g, 0, wv, fp, cc,
+                                      torch.zeros(3, device=dev), cfg)
+        g2 = F.cycle_predict(state.model, target, depth, o["render"][None],
+                             o["rendered_alpha"][None],
+                             o["rendered_depth"][None, 0], pack, v2w, quat)
+        return {"canonical": g, "cycle": g2}
+
+    timed, other = renders_of(0), renders_of(1)
+    del state, p0
+    torch.cuda.empty_cache()
+    shapes = {k: time_kernel_bwd(prepared(g, cam, cfg), TIMED_LAUNCHES,
+                                 args.seed) for k, g in timed.items()}
+    for k, v in shapes.items():
+        emit("kernel_timing_bwd", card=card, shape=k, **v)
+    for k, g in other.items():
+        emit("kernel_vs_plain_bwd", case=f"train_{k}_image1",
+             tol=f"{GRAD_TOL} x max|g| per column on >= {TRAIN_ROWS} of "
+                 "rows, each row outside with a pair that can flip",
+             **compare_bwd(prepared(g, cam, cfg), args.seed + 1, TRAIN_ROWS))
+    return launches, shapes, B
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--num_nvs_views", type=int, default=128)
+    args = ap.parse_args(argv)
+
+    # the training step fills most of the card; segments that grow keep
+    # the allocator's cache from fragmenting it
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device; it runs only on the card",
+              file=sys.stderr)
+        return 1
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
+    dev = torch.device("cuda")
+    card = card_line()
+
+    build(card)
+    flagship_bwd = kernels_vs_plain(dev, args.seed)
+    serve_launches, fwd_shapes, (n_nvs, n_render) = serving_path(args, dev, card)
+    (train_k1, train_k2), bwd_shapes, B = training_path(args, dev, card)
+
+    nvs, cano = fwd_shapes["nvs"], bwd_shapes["canonical"]
     kernels = [{
         "name": "raster_fwd", "route": "cuda",
         "source": "f3d_gaus_torch/csrc/raster_fwd.cu",
         "replaces": "f3d_gaus_tpu/ops/pallas_raster.py:230",
-        "launches": launches, "max_abs_err": main["anchor_err"],
-        "ms": main["ms"], "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "launches": serve_launches + train_k1,
+        "launches_by_path": {"serving": serve_launches, "training": train_k1},
+        "max_abs_err": nvs["anchor_err"],
+        "ms": nvs["ms"], "plain_ms": nvs["plain_ms"],
+        "bound_ms": nvs["bound_ms"], "bound_by": nvs["bound_by"],
         "library_ms": None,
-        "at": f"NVS render, P={main['P']} ({n_nvs} of {n_agg + n_nvs} "
-              "launches per attempt); max_abs_err over out9 channels "
-              "0-5,7,8",
+        "at": f"NVS render, P={nvs['P']} ({n_nvs} of {n_render} serving "
+              f"launches per attempt; {3 * B} per training step); "
+              "max_abs_err over out9 channels 0-5,7,8",
         "shapes": {k: {f: v[f] for f in ("P", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "anchor_err")}
-                   for k, v in shapes.items()},
+                   for k, v in fwd_shapes.items()},
+    }, {
+        "name": "raster_bwd", "route": "cuda",
+        "source": "f3d_gaus_torch/csrc/raster_bwd.cu",
+        "replaces": "f3d_gaus_tpu/ops/pallas_raster.py:401",
+        "launches": train_k2,
+        "launches_by_path": {"serving": 0, "training": train_k2},
+        "max_abs_err": cano["max_abs_err"],
+        "ms": cano["ms"], "plain_ms": cano["plain_ms"],
+        "bound_ms": cano["bound_ms"], "bound_by": cano["bound_by"],
+        "library_ms": None,
+        "at": f"canonical training render, P={cano['P']} ({B} of {3 * B} "
+              "launches per training step); max_abs_err over d_feat and "
+              f"d_stats (largest |g| {cano['max_abs_grad']:.6g}, rows within "
+              f"{GRAD_TOL} x max|g| {cano['rows_within_tol']:.6g}); flagship "
+              f"max_abs_err {flagship_bwd['max_abs_err']:.6g}",
+        "shapes": {k: {f: v[f] for f in ("P", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "max_abs_err",
+                                         "bitwise_repeatable")}
+                   for k, v in bwd_shapes.items()},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": 1}}), flush=True)
     return 0
 
 

@@ -7,13 +7,14 @@ and nothing of `f3d_gaus_tpu`.
 
 Layer map (bottom to top):
   core/      cameras (numpy), quaternions, SH, per-Gaussian preprocess
-  ops/       tile binning and the GOF compositing forward; the compositing
-             runs in a hand-written CUDA kernel (csrc/raster_fwd.cu, built
-             with nvcc on first CUDA use) and in a plain PyTorch version for
-             CPU tensors
+  ops/       tile binning and the differentiable GOF compositing; forward
+             and backward run in hand-written CUDA kernels
+             (csrc/raster_fwd.cu, csrc/raster_bwd.cu, built with nvcc on
+             first CUDA use) and in plain PyTorch versions for CPU tensors
   models/    SongUNet predictor as nn.Modules keyed by the reference's
              torch state_dict names, plus the JAX -> torch weight converter
   pipeline/  config, demo dataset, renderer wrappers, cycle aggregation + NVS
+  train/     the feed-forward trainer: losses, train_step, checkpoints
   io/        PLY export (numpy)
   cli.py     single image -> Gaussians -> NVS orbit frames
 

@@ -1,5 +1,7 @@
-"""Device selection shared by the port's entry points."""
+"""Device selection and stage timing shared by the port's entry points."""
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -25,3 +27,21 @@ def resolve_device(device=None, like: torch.Tensor | None = None) -> torch.devic
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return device
+
+
+class StageClock:
+    """Wall seconds per stage into `timings` (a dict), synchronising the
+    card at each lap; does nothing when `timings` is None."""
+
+    def __init__(self, device, timings):
+        self.device, self.timings = device, timings
+        self.t = time.perf_counter()
+
+    def lap(self, name):
+        if self.timings is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.timings[name] = now - self.t
+        self.t = now

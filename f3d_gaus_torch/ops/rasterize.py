@@ -1,20 +1,27 @@
-"""The GOF tile rasterizer, forward half (counterpart of
+"""The differentiable GOF tile rasterizer (counterpart of
 f3d_gaus_tpu/ops/rasterize.py).
 
 `render` runs preprocess -> binning -> compositing.  Compositing has two
-implementations of one function:
+implementations of each direction:
 
-  * the hand-written CUDA kernel (ops/cuda_raster.py, csrc/raster_fwd.cu),
-    which every render on CUDA tensors goes through;
-  * `_composite_fwd_impl`, its plain PyTorch version: the JAX package's
-    chunked parallel-compositing formulation (exclusive cumulative
-    products for transmittance, the stop rule as a mask), used for CPU
-    tensors and as the yardstick the kernel is held against.
+  * the hand-written CUDA kernels (ops/cuda_raster.py): csrc/raster_fwd.cu
+    for the forward and csrc/raster_bwd.cu for its gradient, which every
+    render on CUDA tensors goes through;
+  * `_composite_fwd_impl` / `_composite_bwd_impl`, their plain PyTorch
+    versions: the JAX package's chunked parallel-compositing formulation
+    (exclusive cumulative products for transmittance, the stop rule as a
+    mask; a reverse chunk walk with the pull-back through
+    `torch.func.vjp` of `_chunk_eval`), used for CPU tensors and as the
+    yardstick the kernels are held against.
 
-Every per-pixel quantity of the GOF ray quadratic is evaluated from 19
-per-Gaussian monomial coefficients in the ray d = (u, v, 1) (see the NFEAT
-layout note below).  This slice is forward-only: `render` refuses inputs
-that require a gradient.
+`composite` is a `torch.autograd.Function` over the (P, NFEAT) feature
+table and a (P, 3) densification-stats dummy; its backward keeps the
+reference's gradient semantics (pass-through clamps, no gradient on the
+alpha channel, detached distortion weights, the depth gradient to the
+median contributor only, stats through the conic).  Every per-pixel
+quantity of the GOF ray quadratic is evaluated from 19 per-Gaussian
+monomial coefficients in the ray d = (u, v, 1) (see the NFEAT layout note
+below).
 """
 from __future__ import annotations
 
@@ -136,8 +143,10 @@ def _chunk_eval(feat_c, u, v):
     num = torch.clamp_min(num, 0.0)
     t = -BB / (2.0 * AA_safe)
     min_value = num / AA_safe
-    Gv = torch.exp(torch.clamp_max(-0.5 * min_value, 0.0))
-    alpha_raw = torch.clamp_max(opa * Gv, 0.99)
+    # pass-through clamps (the CUDA reference keeps the full gradient
+    # through min(), backward.cu:912)
+    Gv = torch.exp(_passthrough_min(-0.5 * min_value, 0.0))
+    alpha_raw = _passthrough_min(opa * Gv, 0.99)
 
     # n = (M^T M) d, un-doubling the baked-in off-diagonal 2s
     nx = qa[0] * U + 0.5 * qa[1] * V + 0.5 * qa[3]
@@ -155,6 +164,11 @@ def _chunk_eval(feat_c, u, v):
             "rgb": rgb}
 
 
+def _passthrough_min(x, cap):
+    """min(x, cap) in value, identity in gradient (CUDA clamp semantics)."""
+    return x + (torch.clamp_max(x, cap) - x).detach()
+
+
 def _exclusive_cumprod(x, dim):
     incl = torch.cumprod(x, dim=dim)
     ones = torch.ones_like(incl.narrow(dim, 0, 1))
@@ -162,9 +176,9 @@ def _exclusive_cumprod(x, dim):
 
 
 def _gather_windows(feat, point_list, tile_start, tile_count, K):
-    """Dense per-tile windows: (T, K) valid mask + (T, K, F) features.
-    Gathers ride a zero-padded table so the slab's sentinel id P lands on
-    an all-zero row (which self-masks in _chunk_eval)."""
+    """Dense per-tile windows: (T, K) Gaussian ids, valid mask and (T, K, F)
+    features.  Gathers ride a zero-padded table so the slab's sentinel id P
+    lands on an all-zero row (which self-masks in _chunk_eval)."""
     offs = torch.arange(K, dtype=torch.int64, device=feat.device)[None, :]
     idx = tile_start.long()[:, None] + offs
     win_valid = offs < torch.clamp_max(tile_count.long(), K)[:, None]
@@ -172,7 +186,7 @@ def _gather_windows(feat, point_list, tile_start, tile_count, K):
     gids = point_list.long()[idx_c]
     win_valid = win_valid & (gids < feat.shape[0])
     featz = torch.cat([feat, feat.new_zeros((1,) + feat.shape[1:])], 0)
-    return win_valid, featz[gids]
+    return gids, win_valid, featz[gids]
 
 
 def _composite_fwd_impl(feat, point_list, tile_start, tile_count, bg,
@@ -186,8 +200,8 @@ def _composite_fwd_impl(feat, point_list, tile_start, tile_count, bg,
     C = s.chunk
     n_chunks = max(-(-s.max_per_tile // C), 1)
     K = n_chunks * C
-    win_valid, wfeat = _gather_windows(feat, point_list, tile_start,
-                                       tile_count, K)
+    _, win_valid, wfeat = _gather_windows(feat, point_list, tile_start,
+                                          tile_count, K)
     win_valid = win_valid & (torch.arange(K, device=dev) < s.max_per_tile)
 
     def z(*sh):
@@ -258,6 +272,142 @@ def _composite_fwd_impl(feat, point_list, tile_start, tile_count, bg,
     return out, aux
 
 
+def _composite_bwd_impl(feat, extra, point_list, tile_start, tile_count, bg,
+                        aux: RenderAux, g_out, s: RasterStatics):
+    """Plain PyTorch compositing backward: the reverse chunk walk of the
+    CUDA reference (backward.cu:738-953), as the JAX package restates it.
+
+    feat (P, NFEAT) and extra (P, 5) = [conic | means2d] tables, the aligned
+    slab, bg (3,), the forward's RenderAux and g_out (num_tiles, PIX, 9),
+    the cotangent of out9.  Suffix sums accumulate exactly from zero, T is
+    rebuilt from final_T by division, the contributor mask re-uses the
+    forward's last_pos, and the chunk cotangents are pulled back through
+    torch.func.vjp of _chunk_eval.  Returns (d_feat (P, NFEAT), d_stats
+    (P, 3)), the per-Gaussian densification statistics |dL/dmean2d| through
+    the conic."""
+    P = feat.shape[0]
+    dev, dt = feat.device, feat.dtype
+    u, v = _tile_rays(s, dev)
+    C = s.chunk
+    n_chunks = max(-(-s.max_per_tile // C), 1)
+    K = n_chunks * C
+    gids, win_valid, wall = _gather_windows(
+        torch.cat([feat, extra], 1), point_list, tile_start, tile_count, K)
+    win_valid = win_valid & (torch.arange(K, device=dev) < s.max_per_tile)
+
+    gL_rgb, gL_nn = g_out[..., 0:3], g_out[..., 3:6]
+    gL_depth = g_out[..., 6]
+    # the alpha channel (7) takes no gradient in the reference
+    gL_reg = g_out[..., 8]
+    T_final = aux.final_T
+    final_A = (1.0 - T_final)[..., None]
+    final_D1 = aux.dist1[..., None]
+    bg_dot = (gL_rgb * bg).sum(-1)[..., None]
+    px = (u * s.focal_x + s.width / 2.0 - 0.5)[..., None]   # backward.cu:770
+    py = (v * s.focal_y + s.height / 2.0 - 0.5)[..., None]
+    zero = torch.zeros((), dtype=dt, device=dev)
+
+    def rev_cumsum_excl(x):
+        return torch.flip(torch.cumsum(torch.flip(x, [-2]), -2), [-2]) - x
+
+    T_right = T_final
+    S_rgb_c = torch.zeros(T_final.shape + (3,), dtype=dt, device=dev)
+    S_nn_c = torch.zeros_like(S_rgb_c)
+    d_win = torch.zeros(wall.shape[:2] + (NFEAT + 3,), dtype=dt, device=dev)
+    for ci in reversed(range(n_chunks)):
+        sl = slice(ci * C, (ci + 1) * C)
+        feat_c, ex_c = wall[:, sl, :NFEAT], wall[:, sl, NFEAT:]
+        ct, vjp_fn = torch.func.vjp(lambda f: _chunk_eval(f, u, v), feat_c)
+        alpha_raw, t = ct["alpha_raw"], ct["t"]
+        vc = ((t > NEAR_PLANE) & (alpha_raw >= ALPHA_EPS)
+              & win_valid[:, None, sl])
+        pos = (ci * C + torch.arange(C, dtype=torch.int32, device=dev))[None, None, :]
+        contrib = vc & (pos <= aux.last_pos[..., None])
+        alpha = torch.where(contrib, alpha_raw, zero)
+        om = 1.0 - alpha
+        sp_incl = torch.flip(torch.cumprod(torch.flip(om, [-1]), -1), [-1])
+        T_before = T_right[..., None] / sp_incl
+        T_next_safe = torch.where(contrib, T_before * om, 1.0 + zero)
+        om_safe = torch.where(contrib, om, 1.0 + zero)
+        w = torch.where(contrib, T_before * alpha, zero)
+
+        wc = w[..., None] * ct["rgb"]
+        wnn = w[..., None] * ct["nn"]
+        S_rgb = S_rgb_c[..., None, :] + rev_cumsum_excl(wc)
+        S_nn = S_nn_c[..., None, :] + rev_cumsum_excl(wnn)
+
+        # dL/dalpha (backward.cu:822-893): colour, normal and background
+        d_alpha = (torch.einsum('tpj,tpcj->tpc', gL_rgb,
+                                ct["rgb"] - S_rgb / T_next_safe[..., None])
+                   + torch.einsum('tpj,tpcj->tpc', gL_nn,
+                                  ct["nn"] - S_nn / T_next_safe[..., None]))
+        d_alpha = d_alpha * T_before - T_final[..., None] / om_safe * bg_dot
+        d_alpha = torch.where(contrib, d_alpha, zero)
+        # distortion -> m with detached weights (backward.cu:839-852)
+        d_m = torch.where(contrib, 2.0 * w * (ct["m"] * final_A - final_D1)
+                          * gL_reg[..., None], zero)
+        d_t = torch.where((pos == aux.max_pos[..., None]) & contrib,
+                          gL_depth[..., None], zero)
+        cots = {"alpha_raw": d_alpha, "G": torch.zeros_like(d_alpha),
+                "t": d_t, "m": d_m, "nn": w[..., None] * gL_nn[:, :, None, :],
+                "rgb": (w[..., None] * gL_rgb[:, :, None, :]).sum(
+                    1, keepdim=True)}
+        (d_feat_c,) = vjp_fn(cots)
+
+        # densification stats through the conic (backward.cu:896-909)
+        dL_dG = feat_c[:, None, :, ROW_OPA] * d_alpha
+        G = ct["G"]
+        dx = ex_c[..., 3][:, None, :] - px
+        dy = ex_c[..., 4][:, None, :] - py
+        gdx, gdy = G * dx, G * dy
+        ca, cb, cc = (ex_c[..., i][:, None, :] for i in range(3))
+        gx = dL_dG * (-gdx * ca - gdy * cb) * (0.5 * s.width)
+        gy = dL_dG * (-gdy * cc - gdx * cb) * (0.5 * s.height)
+        d_win[:, sl] = torch.cat([d_feat_c, torch.stack(
+            [gx.sum(1), gy.sum(1), (gx.abs() + gy.abs()).sum(1)], -1)], -1)
+
+        S_rgb_c = S_rgb_c + wc.sum(-2)
+        S_nn_c = S_nn_c + wnn.sum(-2)
+        T_right = T_right / torch.prod(om_safe, -1)
+
+    seg = torch.where(win_valid, gids, P).reshape(-1)
+    d_all = torch.zeros((P + 1, NFEAT + 3), dtype=dt, device=dev)
+    d_all.index_add_(0, seg, d_win.reshape(-1, NFEAT + 3))
+    return d_all[:P, :NFEAT], d_all[:P, NFEAT:]
+
+
+class _Composite(torch.autograd.Function):
+    """Compositing differentiable in the (P, NFEAT) feature table, with a
+    (P, 3) stats dummy whose cotangent receives the densification
+    statistics (the JAX package's composite_from_features,
+    pallas_raster.py:636-711).  The conic/means2d table, the binning, bg
+    and the RenderAux outputs take no gradient.  `kernel` picks the CUDA
+    kernels in both directions, else the plain versions."""
+
+    @staticmethod
+    def forward(ctx, feat, stats, extra, point_list, tile_start, tile_count,
+                bg, s, kernel):
+        from . import cuda_raster
+        fwd = cuda_raster.composite_fwd if kernel else _composite_fwd_impl
+        out, aux = fwd(feat, point_list, tile_start, tile_count, bg, s)
+        ctx.save_for_backward(feat, extra, point_list, tile_start,
+                              tile_count, bg, *aux)
+        ctx.statics, ctx.kernel = s, kernel
+        ctx.mark_non_differentiable(*aux)
+        return (out, *aux)
+
+    @staticmethod
+    def backward(ctx, g_out, *_):
+        from . import cuda_raster
+        feat, extra, point_list, tile_start, tile_count, bg, *aux = \
+            ctx.saved_tensors
+        bwd = cuda_raster.composite_bwd if ctx.kernel else _composite_bwd_impl
+        d_feat, d_stats = bwd(feat, extra, point_list, tile_start, tile_count,
+                              bg, RenderAux(*aux), g_out.contiguous(),
+                              ctx.statics)
+        return d_feat, d_stats, None, None, None, None, None, None, None
+
+
 # ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
@@ -302,9 +452,12 @@ def plan_caps(means3d, scales, quats, opacities, camera, *,
 
 class CompositeInputs(NamedTuple):
     """What compositing consumes: the preprocessed Gaussians (radii masked),
-    their colours, the binning, the statics and the background."""
+    their colours and opacities as composited, the stats dummy, the
+    binning, the statics and the background."""
     pre: G.Preprocessed
     rgb: torch.Tensor
+    opa: torch.Tensor      # (P,) the value of pre.opa_coef (see prepare)
+    stats: torch.Tensor    # (P, 3) its gradient is the densification stats
     binning: B.Binning
     statics: RasterStatics
     bg: torch.Tensor
@@ -314,7 +467,7 @@ def prepare(means3d, scales, quats, opacities, shs, camera, bg=None, *,
             sh_degree: int = 1, kernel_size: float = 0.0,
             scale_modifier: float = 1.0, pair_cap: int = 1 << 18,
             max_per_tile: int = 1024, chunk: int = 128, colors_precomp=None,
-            mask=None, device=None) -> CompositeInputs:
+            means2d_stats=None, mask=None, device=None) -> CompositeInputs:
     """Preprocess and bin one Gaussian set for one camera (the part of
     `render` before compositing; same arguments)."""
     dev = resolve_device(device, means3d if torch.is_tensor(means3d) else None)
@@ -328,6 +481,13 @@ def prepare(means3d, scales, quats, opacities, shs, camera, bg=None, *,
             torch.as_tensor(mask, device=dev), pre.radii,
             torch.zeros_like(pre.radii)))
     rgb = pre.rgb if colors_precomp is None else _as_tensor(colors_precomp, dev)
+    # the reference's opacity gradient: the value is opacity * coef, but the
+    # cotangent reaches the opacity directly, skipping the low-pass
+    # coefficient (backward.cu:912; coef is 1 at kernel_size 0 anyway)
+    opa_flat = opacities.reshape(-1)
+    opa = opa_flat + (pre.opa_coef - opa_flat).detach()
+    stats = (torch.zeros((means3d.shape[0], 3), device=dev)
+             if means2d_stats is None else means2d_stats)
 
     width, height = camera.width, camera.height
     # window and slab alignment: 256 whenever the window allows it
@@ -342,54 +502,58 @@ def prepare(means3d, scales, quats, opacities, shs, camera, bg=None, *,
                             max_per_tile=max_per_tile, chunk=chunk,
                             lanes=lanes)
     bg = (torch.zeros(3, device=dev) if bg is None
-          else _as_tensor(bg, dev).reshape(3).contiguous())
-    return CompositeInputs(pre, rgb, bng, statics, bg)
+          else _as_tensor(bg, dev).detach().reshape(3).contiguous())
+    return CompositeInputs(pre, rgb, opa, stats, bng, statics, bg)
 
 
 def composite(inp: CompositeInputs, backend: str = "auto"):
-    """Composite prepared inputs.  backend 'auto' launches the kernel
-    (cuda_raster.composite_fwd) for CUDA tensors and takes the plain
-    version for CPU tensors; 'torch' always takes the plain version.
-    Returns (out (num_tiles, PIX, 9), RenderAux)."""
+    """Composite prepared inputs, differentiably.  backend 'auto' runs the
+    kernels (cuda_raster.composite_fwd, and composite_bwd for the
+    gradient) for CUDA tensors and the plain versions for CPU tensors;
+    'torch' always takes the plain versions.  Gradients reach v2g_mb, rgb
+    and opa through the feature table and `inp.stats` through the stats
+    dummy; conic, means2d and bg take none.  Returns (out (num_tiles, PIX,
+    9), RenderAux)."""
     if backend not in ("auto", "torch"):
         raise ValueError(f"unknown backend {backend!r}")
     from . import cuda_raster
     pre, bng = inp.pre, inp.binning
-    feat = cuda_raster._all_features(pre.v2g_mb, inp.rgb, pre.opa_coef)
-    args = (feat, bng.point_list, bng.tile_start, bng.tile_count, inp.bg,
-            inp.statics)
-    if backend == "torch" or feat.device.type == "cpu":
-        return _composite_fwd_impl(*args)
-    return cuda_raster.composite_fwd(*args)
+    feat = cuda_raster._all_features(pre.v2g_mb, inp.rgb, inp.opa)
+    extra = torch.cat([pre.conic, pre.means2d], 1).detach()
+    kernel = backend == "auto" and feat.device.type != "cpu"
+    out, *aux = _Composite.apply(feat, inp.stats, extra, bng.point_list,
+                                 bng.tile_start, bng.tile_count, inp.bg,
+                                 inp.statics, kernel)
+    return out, RenderAux(*aux)
 
 
 def render(means3d, scales, quats, opacities, shs, camera, bg=None, *,
            sh_degree: int = 1, kernel_size: float = 0.0,
            scale_modifier: float = 1.0, pair_cap: int = 1 << 18,
            max_per_tile: int = 1024, chunk: int = 128, colors_precomp=None,
-           mask=None, backend: str = "auto", device=None):
-    """Render one Gaussian set through one camera.
+           means2d_stats=None, mask=None, backend: str = "auto", device=None):
+    """Render one Gaussian set through one camera, differentiably in the
+    five Gaussian inputs (and colors_precomp).
 
-    backend: 'auto' composites CUDA tensors in the hand-written kernel and
-    CPU tensors in the plain PyTorch version; 'torch' forces the plain
-    version (tests and chip_smoke.py compare the two with it).  The inputs
+    backend: 'auto' composites CUDA tensors in the hand-written kernels and
+    CPU tensors in the plain PyTorch versions; 'torch' forces the plain
+    versions (tests and chip_smoke.py compare the two with it).  The inputs
     may be tensors (their device is used) or arrays, which go to `device`
-    (default `cuda`).
+    (default `cuda`).  means2d_stats: an optional (P, 3) tensor whose
+    gradient receives the densification statistics (the reference's
+    screenspace_points dummy).
 
     Returns a dict with keys render (3,H,W), rendered_normal (camera space,
     unnormalized), rendered_depth, rendered_alpha, distortion_map, out9,
     radii, aux, binning and overflow (a 0-dim bool tensor: True iff
     pair_cap or max_per_tile was too small and the image is truncated).
     """
-    tensors = [means3d, scales, quats, opacities, shs, bg, colors_precomp]
-    if torch.is_grad_enabled() and any(
-            torch.is_tensor(t) and t.requires_grad for t in tensors):
-        raise NotImplementedError("backward lands with the training slice")
     inp = prepare(means3d, scales, quats, opacities, shs, camera, bg,
                   sh_degree=sh_degree, kernel_size=kernel_size,
                   scale_modifier=scale_modifier, pair_cap=pair_cap,
                   max_per_tile=max_per_tile, chunk=chunk,
-                  colors_precomp=colors_precomp, mask=mask, device=device)
+                  colors_precomp=colors_precomp, means2d_stats=means2d_stats,
+                  mask=mask, device=device)
     out, aux = composite(inp, backend)
     img = _tiles_to_image(out, inp.statics)
     bng = inp.binning

@@ -17,14 +17,13 @@ Everything runs without autograd: this is the serving path.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..core import cameras
-from ..core.device import resolve_device
+from ..core.device import StageClock, resolve_device
 from .config import PipelineConfig
 from . import renderer
 
@@ -52,24 +51,6 @@ def nvs_cameras(cfg: PipelineConfig, inverse_first_camera):
 
 def _t(x, device):
     return torch.as_tensor(x, dtype=torch.float32, device=device)
-
-
-class _StageClock:
-    """Wall seconds per stage into `timings` (a dict), synchronising the
-    card at each lap; does nothing when `timings` is None."""
-
-    def __init__(self, device, timings):
-        self.device, self.timings = device, timings
-        self.t = time.perf_counter()
-
-    def lap(self, name):
-        if self.timings is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.timings[name] = now - self.t
-        self.t = now
 
 
 @torch.no_grad()
@@ -136,7 +117,7 @@ def run_nvs(model, cfg: PipelineConfig, cams, images, depth, bg=None,
     cano = cams.camera_set
     agg = aggregation_cameras(cfg, cams.inverse_first_camera)
     nvs = nvs_cameras(cfg, cams.inverse_first_camera)
-    clock = _StageClock(dev, timings)
+    clock = StageClock(dev, timings)
 
     g0 = first_forward(model, images, depth, cano.view_to_world[0],
                        cano.cv2wT_quat[0])

@@ -13,6 +13,10 @@ from f3d_gaus_tpu.ops import rasterize_ref
 from f3d_gaus_torch.ops import binning as TB
 from tests.test_rasterize_parity import _setup
 
+# the suite runs in several xdist workers on one CPU: torch's intra-op
+# threads would oversubscribe the cores, so each worker keeps one
+torch.set_num_threads(1)
+
 FIELDS = ("point_list", "pair_valid", "tile_start", "tile_count",
           "num_pairs", "overflow")
 

@@ -1,8 +1,10 @@
 """f3d_gaus_torch.core against f3d_gaus_tpu.core on the same numpy inputs:
 preprocess values at 1e-5 of max |ref| with radii exactly equal, SH
-evaluation, quaternions and the numpy camera copy (bit-equal)."""
-import numpy as np
+evaluation, quaternions and the numpy camera copy (bit-equal); and the
+gradients of preprocess's render-facing outputs."""
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -16,6 +18,10 @@ from f3d_gaus_torch.core import quaternions as TQ
 from f3d_gaus_torch.core import sh as TSH
 from tests.conftest import make_gaussian_cloud
 from tests.test_rasterize_parity import _setup
+
+# the suite runs in several xdist workers on one CPU: torch's intra-op
+# threads would oversubscribe the cores, so each worker keeps one
+torch.set_num_threads(1)
 
 
 def _rel(a, b):
@@ -104,3 +110,44 @@ def test_camera_copy_is_bit_equal():
                                rebase=it)
     for x, y in zip(oj, ot):
         np.testing.assert_array_equal(y, np.asarray(x))
+
+
+PRE_FIELDS = ("v2g_mb", "rgb", "opa_coef", "means2d", "conic")
+
+
+def _preprocess_grads(cloud, cam, weights):
+    """d(sum over PRE_FIELDS of field * weight) / d(means, scales, quats,
+    opacities, shs) through preprocess, in JAX and in the port."""
+    def jloss(*a):
+        pre = JG.preprocess(*a, 1, cam)
+        return sum(jnp.sum(getattr(pre, f) * weights[f]) for f in PRE_FIELDS)
+    gj = jax.grad(jloss, argnums=tuple(range(5)))(*[jnp.asarray(a) for a in cloud])
+    ts = [torch.from_numpy(a).requires_grad_() for a in cloud]
+    pre = TG.preprocess(*ts, 1, cam)
+    sum((getattr(pre, f) * torch.from_numpy(weights[f])).sum()
+        for f in PRE_FIELDS).backward()
+    return [np.asarray(g) for g in gj], [t.grad.numpy() for t in ts]
+
+
+@pytest.mark.parametrize("culled", [False, True])
+def test_preprocess_grads_match_jax(culled):
+    """Gradients of a seeded weighted sum of v2g_mb, rgb, opa_coef, means2d
+    and conic with respect to the five inputs, at 5e-3 x max |g| (the JAX
+    package's gradient tolerance).  With `culled`, a third of the cloud
+    sits behind the camera, where the z floor of cov2d_and_coef keeps the
+    gradients finite."""
+    cam, cloud = _setup(np.random.default_rng(7), n=96)
+    cloud = [a.copy() for a in cloud]
+    if culled:
+        cloud[0][::3, 2] = -3.0
+    rng = np.random.default_rng(8)
+    n = cloud[0].shape[0]
+    weights = {f: rng.normal(size=s).astype(np.float32) for f, s in (
+        ("v2g_mb", (n, 12)), ("rgb", (n, 3)), ("opa_coef", (n,)),
+        ("means2d", (n, 2)), ("conic", (n, 3)))}
+    ref, got = _preprocess_grads(cloud, cam, weights)
+    for name, r, g in zip(("means", "scales", "quats", "opacities", "shs"),
+                          ref, got):
+        assert np.isfinite(g).all(), name
+        np.testing.assert_allclose(g, r, rtol=0,
+                                   atol=5e-3 * np.abs(r).max(), err_msg=name)

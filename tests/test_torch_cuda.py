@@ -1,7 +1,8 @@
-"""The CUDA compositing kernel (csrc/raster_fwd.cu) against its plain
-PyTorch version on the card.  Needs a CUDA device and nvcc; skips
-elsewhere.  Imports no JAX, so on the card's machine it runs without the
-JAX package's conftest:
+"""The CUDA compositing kernels (csrc/raster_fwd.cu, csrc/raster_bwd.cu)
+against their plain PyTorch versions on the card, and one feed-forward
+training step there.  Needs a CUDA device and nvcc; skips elsewhere.
+Imports no JAX, so on the card's machine it runs without the JAX
+package's conftest:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 """
@@ -11,6 +12,9 @@ import torch
 
 from f3d_gaus_torch.ops import cuda_raster
 from f3d_gaus_torch.ops import rasterize as TR
+from f3d_gaus_torch.pipeline import config as TCfg
+from f3d_gaus_torch.pipeline import dataset as TD
+from f3d_gaus_torch.train import feedforward as TF
 import torch_cases  # tests/ is on sys.path under pytest (rootdir-less dir)
 
 pytestmark = pytest.mark.cuda
@@ -75,3 +79,76 @@ def test_wrapper_rejects_bad_inputs(cuda):
     out, aux = cuda_raster.composite_fwd(allf, pl, ts, ts, bg, s)
     torch.cuda.synchronize()
     assert (aux.final_T == 1).all() and (aux.last_pos == -1).all()
+
+
+def _bwd_inputs(case, device):
+    """A small case prepared on `device`, the forward kernel's residuals
+    and a seeded out9 cotangent with the alpha channel zeroed."""
+    name, cam, cloud, bg, kw = next(c for c in torch_cases.small_cases()
+                                    if c[0] == case)
+    inp = TR.prepare(*[torch.from_numpy(a).to(device) for a in cloud], cam,
+                     torch.from_numpy(bg).to(device), **kw)
+    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
+    extra = torch.cat([inp.pre.conic, inp.pre.means2d], 1).detach()
+    b = inp.binning
+    slab = (b.point_list, b.tile_start, b.tile_count, inp.bg)
+    out, aux = cuda_raster.composite_fwd(feat, *slab, inp.statics)
+    g = np.random.default_rng(0).normal(size=tuple(out.shape)).astype(np.float32)
+    g[..., 7] = 0.0
+    return feat, extra, slab, aux, torch.from_numpy(g).to(device), inp.statics
+
+
+@pytest.mark.parametrize("case", CASE_NAMES)
+def test_bwd_kernel_matches_plain(cuda, case):
+    """d_feat and d_stats within 5e-3 x max |g| per column (atomics
+    reorder the sums)."""
+    feat, extra, slab, aux, g, s = _bwd_inputs(case, cuda)
+    before = cuda_raster.launches_bwd
+    k = cuda_raster.composite_bwd(feat, extra, *slab, aux, g, s)
+    torch.cuda.synchronize()
+    assert cuda_raster.launches_bwd == before + 1
+    p = TR._composite_bwd_impl(feat, extra, *slab, aux, g, s)
+    for got, ref in zip(k, p):
+        assert torch.isfinite(got).all()
+        tol = 5e-3 * ref.abs().amax(0, keepdim=True)
+        assert ((got - ref).abs() <= tol).all()
+
+
+def test_bwd_wrapper_rejects_bad_inputs(cuda):
+    feat, extra, slab, aux, g, s = _bwd_inputs("cloud96_mpt128", cuda)
+    with pytest.raises(ValueError):
+        cuda_raster.composite_bwd(feat, extra[:, :3].contiguous(), *slab,
+                                  aux, g, s)
+    with pytest.raises(ValueError):
+        cuda_raster.composite_bwd(feat, extra, *slab, aux, g[..., :8], s)
+    with pytest.raises(ValueError):
+        cuda_raster.composite_bwd(feat, extra, *slab,
+                                  aux._replace(last_pos=aux.last_pos.long()),
+                                  g, s)
+    with pytest.raises(ValueError):
+        cuda_raster.composite_bwd(feat, extra.cpu(), *slab, aux, g, s)
+    with pytest.raises(ValueError):
+        cuda_raster.composite_bwd(feat, extra, *slab, aux,
+                                  g.transpose(0, 1).contiguous().transpose(0, 1),
+                                  s)
+
+
+def test_train_step_on_the_card(cuda):
+    """One feed-forward step at the tiny config of tests/test_torch_train.py:
+    every render goes through both kernels (3 per image)."""
+    cfg = TCfg.PipelineConfig(resolution=32, base_dim=32, num_blocks=1,
+                              attn_resolutions=(8,), model_channels=32,
+                              pair_cap=1 << 14, max_per_tile=2048, chunk=128)
+    state = TF.init_state(torch.Generator().manual_seed(0), cfg, lr=1e-4)
+    pack = TF.make_cameras_pack(cfg, TD.canonical_cameras(cfg), n_banks=1,
+                                views_per_bank=1)
+    rng = np.random.default_rng(0)
+    batch = {"images": rng.uniform(size=(2, 32, 32, 3)).astype(np.float32),
+             "depth": rng.uniform(6.8, 8.5, size=(2, 32, 32)).astype(np.float32)}
+    f0, b0 = cuda_raster.launches, cuda_raster.launches_bwd
+    loss, aux = TF.train_step(state, cfg, batch, pack)
+    torch.cuda.synchronize()
+    assert np.isfinite(loss.item()) and state.step == 1
+    assert cuda_raster.launches - f0 == 6 and cuda_raster.launches_bwd - b0 == 6
+    for p in state.model.parameters():
+        assert torch.isfinite(p.grad).all()

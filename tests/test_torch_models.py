@@ -1,7 +1,8 @@
 """f3d_gaus_torch.models against f3d_gaus_tpu.models: the same parameters
 (params_from_jax of the JAX tree) and inputs give every predictor output
 key within 2e-4 x max |ref| (XLA and oneDNN sum convolutions in different
-orders).  The JAX parameters are perturbed with seeded noise first, so the
+orders), and the parameter gradients of a scalar of the outputs within
+5e-3 x max |g| per tensor.  The JAX parameters are perturbed with seeded noise first, so the
 zero-gain heads (features_rest) carry signal too."""
 import functools
 
@@ -16,6 +17,10 @@ from f3d_gaus_tpu.models import predictor as JP
 from f3d_gaus_torch.models import convert as TC
 from f3d_gaus_torch.models import layers as TL
 from f3d_gaus_torch.models import predictor as TP
+
+# the suite runs in several xdist workers on one CPU: torch's intra-op
+# threads would oversubscribe the cores, so each worker keeps one
+torch.set_num_threads(1)
 
 SMALL = dict(resolution=32, base_dim=32, num_blocks=1, attn_resolutions=(8,))
 
@@ -112,3 +117,30 @@ def test_layers_match_jax():
         np.testing.assert_allclose(
             got.numpy(), np.asarray(JL.conv2d(cp, x, up=up, down=down)),
             atol=1e-4)
+
+
+@pytest.mark.parametrize("B,N", [(1, 1), (1, 2)])
+def test_predictor_param_grads_match_jax(B, N):
+    """Parameter gradients of a seeded weighted sum of every output key
+    against jax.grad of predictor.apply on the same (perturbed) weights,
+    at 5e-3 x max |g| per tensor; N = 2 runs the cross-view fold."""
+    jc, tc = JP.PredictorConfig(**SMALL), TP.PredictorConfig(**SMALL)
+    tree = _perturbed_params()
+    model = TP.GaussianPredictor(tc)
+    model.load_state_dict(TC.params_from_jax(tree), strict=True)
+    args = _inputs(np.random.default_rng(10 + N), B, N)
+    out = model(*map(torch.from_numpy, args))
+    rng = np.random.default_rng(11)
+    w = {k: rng.normal(size=tuple(v.shape)).astype(np.float32)
+         for k, v in out.items()}
+    sum((v * torch.from_numpy(w[k])).sum() for k, v in out.items()).backward()
+
+    def jloss(p):
+        o = JP.apply(p, jc, *map(jnp.asarray, args))
+        return sum(jnp.sum(o[k] * w[k]) for k in o)
+    ref = TC.params_from_jax(jax.tree_util.tree_map(
+        np.asarray, jax.jit(jax.grad(jloss))(tree)))
+    for name, p in model.named_parameters():
+        r = ref[name].numpy()
+        np.testing.assert_allclose(p.grad.numpy(), r, rtol=0,
+                                   atol=5e-3 * np.abs(r).max(), err_msg=name)

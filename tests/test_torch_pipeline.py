@@ -22,6 +22,10 @@ from f3d_gaus_torch.pipeline import dataset as TD
 from f3d_gaus_torch.pipeline import renderer as Trenderer
 import torch_cases  # tests/ is on sys.path under pytest (rootdir-less dir)
 
+# the suite runs in several xdist workers on one CPU: torch's intra-op
+# threads would oversubscribe the cores, so each worker keeps one
+torch.set_num_threads(1)
+
 SMALL = dict(resolution=32, base_dim=32, num_blocks=1, attn_resolutions=(8,),
              num_aggregation_views=1, num_nvs_views=1,
              pair_cap=1 << 14, max_per_tile=2048, chunk=128)

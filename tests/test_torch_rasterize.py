@@ -14,6 +14,10 @@ from f3d_gaus_tpu.ops import rasterize as JR
 from f3d_gaus_torch.ops import rasterize as TR
 import torch_cases  # tests/ is on sys.path under pytest (rootdir-less dir)
 
+# the suite runs in several xdist workers on one CPU: torch's intra-op
+# threads would oversubscribe the cores, so each worker keeps one
+torch.set_num_threads(1)
+
 CASES = {name: (cam, cloud, bg, kw)
          for name, cam, cloud, bg, kw in torch_cases.small_cases()}
 
