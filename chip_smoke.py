@@ -4,30 +4,43 @@
     python3 chip_smoke.py [--seed 0] [--num_nvs_views 128]
 
 Phases, one JSON line each:
-  1. environment: torch, CUDA, nvcc, the card; builds csrc/raster_fwd.cu
-     and csrc/raster_bwd.cu anew for sm_90a (one nvcc each, in parallel)
-     and prints ptxas's register/shared-memory lines;
-  2. kernel_vs_plain: the compositing forward kernel (K1) against its
-     plain PyTorch version on the 32^2 cases of tests/torch_cases.py
+  1. environment: torch, CUDA, nvcc, the card; builds the decision pass
+     csrc/gof_decide.cu, csrc/raster_fwd.cu and csrc/raster_bwd.cu anew
+     for sm_90a (one nvcc each, in parallel; all include
+     csrc/gof_pair.cuh) and prints ptxas's register/shared-memory lines;
+  2. decide_vs_plain: the decision pass's mask against its plain version
+     (rasterize._contrib_mask_impl): word for word on the 32^2 cases of
+     tests/torch_cases.py; on the flagship each differing bit must be a
+     pair whose decision f32 rounding can flip (flip_margins);
+     kernel_vs_plain: the compositing forward (K1 = decision pass +
+     compositing pass) against its plain PyTorch version on the 32^2 cases
      (out9 and final_T at atol 1e-4, last_pos / max_pos equal) and on the
      256^2 65,536-Gaussian flagship (bench.py's anchor: channels 0-5, 7, 8,
      max error < 2e-2, <= 0.1 % of values above 1e-3);
-     kernel_vs_plain_bwd: the backward kernel (K2) against its plain
+     kernel_vs_plain_bwd: the backward (K2 = decision pass + backward
+     pass) against its plain
      version on the same inputs and a seeded out9 cotangent (alpha channel
      zeroed): d_feat and d_stats within 5e-3 x max |g| per column on every
      32^2 case and on >= 99.9 % of the flagship's Gaussian rows, each row
      outside holding a pair whose f32 decision can flip (flip_margins);
      and autograd of a render loss to the five inputs and means2d_stats,
      kernel path against backend="torch", on the 32^2 cases;
+     given_mask_vs_plain: on the flagship, the compositing and backward
+     passes against their plain versions given the same decision mask
+     (compare_given_mask: no alpha or t decision left to flip);
   3. main_path (serving): cycle.run_nvs_replanned at PipelineConfig() width
      (256^2, base_dim 128, 8 aggregation views, 128+1 NVS views) with
      random EDM weights from a seeded torch.Generator on a numpy-made RGB-D
      input; checks shapes, finiteness, no overflow, and that every render
-     went through K1 (launch count == (8 + 129) per attempt, no K2);
+     went through K1 (launch count == (8 + 129) per attempt, as many
+     decision passes, no K2);
   4. kernel_timing: K1 with CUDA events at the serving path's two shapes
-     (aggregation render, P = 65,536; NVS render, P = 589,824) beside the
-     plain version and the bound (operations and bytes this run's data
-     needs), whether two launches agree bit for bit, and the split of one
+     (aggregation render, P = 65,536; NVS render, P = 589,824), whole and
+     each pass alone (decide_ms, composite_ms), beside the plain version
+     and the bounds (operations and bytes this run's data needs, with the
+     pairs the decision's shortcut rules out counted as such: pair_work),
+     the decision pass's mask against the plain mask, whether
+     two launches agree bit for bit, and the split of one
      NVS render into preprocess, binning, compositing and the rest, with
      a torch.profiler trace of that render;
   5. train_path: feedforward.train_step at PipelineConfig() width on
@@ -35,15 +48,19 @@ Phases, one JSON line each:
      80 GB), one fixed novel camera, lr 1e-4, TRAIN_STEPS applied steps;
      the caps double on RenderOverflow (the step runs again, unapplied);
      checks finite terms, moved parameters, a falling loss, and that K1
-     and K2 each launch 3 times per image per applied step; per-step
-     forward / backward / optimizer seconds and peak allocated memory;
-     then a torch.profiler trace of one more step;
+     and K2 each launch 3 times per image per applied step, the decision
+     pass once for each of them; per-step forward / backward / optimizer
+     seconds and peak allocated memory; then a torch.profiler trace of one
+     more step;
   6. kernel_timing_bwd: K2 at the training step's two shapes (canonical
-     render, P = 65,536; cycle render, P = 131,072) of image 0 beside the
-     plain backward and the bound, and whether two launches agree bit for
-     bit; K2 held against the plain backward there and, at another
-     cotangent seed, on image 1's two renders: >= 99.7 % of rows within
-     5e-3 x max |g|, each row outside holding a pair that can flip.
+     render, P = 65,536; cycle render, P = 131,072) of image 0, whole and
+     each pass alone (decide_ms, backward_ms), beside the plain backward
+     and the bound, and whether two launches agree bit for bit; K2 held
+     against the plain backward there and, at another cotangent seed, on
+     image 1's two renders: >= 99.7 % of rows within 5e-3 x max |g|, each
+     row outside holding a pair that can flip; the decision pass's mask on
+     all four renders, each differing bit a pair that can flip; and
+     compare_given_mask on all four.
 Then the `kernels` line, the card's name and power limit, and last the
 result line.  Any failure raises, so the script exits non-zero and prints
 no result; it also refuses to run without a CUDA device.
@@ -63,17 +80,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-# FP32 operations the kernel spends per (pixel, pair), counted from
-# csrc/raster_fwd.cu (an FMA counts 2): deciding t, alpha and the stop test
-# for every walked pair; normal, colour, depth and distortion accumulation
-# for every contributing pair on top
-OPS_PER_WALKED = 41
+# FP32 operations per (pixel, pair), counted from csrc/gof_pair.cuh,
+# csrc/raster_fwd.cu and csrc/raster_bwd.cu (an FMA counts 2).  Deciding a
+# pair takes its two quadratic forms and the test of
+# gof_pair.cuh:surely_fails (23), which rules most pairs out; the rest take
+# the whole decision, BB, t, alpha and the tests (41).  A contributing pair
+# adds normal, colour, depth and distortion accumulation (64) in the
+# forward, and in the backward about 181 (T rebuild, dL/dalpha, the
+# pull-back to the 19 monomial rows, the stats, and 22 sums over the pixels)
+OPS_PER_REJECTED = 23
+OPS_PER_DECIDED = 41
 OPS_PER_CONTRIB = 64
-# the same for csrc/raster_bwd.cu: every (pixel, pair) up to the pixel's
-# last contributor repeats the forward's 41-operation decision; a
-# contributing one adds about 181 (T rebuild, dL/dalpha, the pull-back to
-# the 19 monomial rows, the stats, and 22 sums over the pixels)
-OPS_PER_WALKED_BWD = 41
 OPS_PER_CONTRIB_BWD = 181
 TIMED_LAUNCHES = 20        # kernel launches per CUDA-event timing
 # gradient tolerance, x max |g| per column: the JAX package's own
@@ -83,6 +100,24 @@ GRAD_TOL = 5e-3
 # flips move a few (PERF.md): the flagship, and the training step's renders
 FLAGSHIP_ROWS = 0.999
 TRAIN_ROWS = 0.997
+FLIP_KINDS = ("alpha", "t", "num")   # the decisions flip_margins witnesses
+# bench.py's anchor, for renders in which f32 rounding moves single
+# pixels: the largest error, and the share of values above ANCHOR_ABOVE
+ANCHOR_MAX_ERR = 2e-2
+ANCHOR_ABOVE = 1e-3
+ANCHOR_SHARE = 1e-3
+# the compositing forward against its plain version given the same mask:
+# the stop and median-depth positions (last_pos, max_pos) may differ on
+# at most this share of pixels (an f32 flip of T (1 - alpha) < 1e-4 or
+# T > 0.5); where they agree, all of out9, depth included, and final_T
+# are held to the anchor
+GIVEN_MASK_POS_SHARE = 1e-3
+GIVEN_MASK_TOL_TEXT = (
+    f"fwd: positions equal on >= {1 - GIVEN_MASK_POS_SHARE} of pixels; "
+    f"there out9 (depth included) and final_T max < {ANCHOR_MAX_ERR}, <= "
+    f"{ANCHOR_SHARE} of pixels above {ANCHOR_ABOVE}; bwd: {GRAD_TOL} x "
+    "max|g| per column, each row outside with a pair whose clamp of num "
+    "can flip")
 TRAIN_BATCH = 6            # images per step; 7 need ~86.5e9 bytes (PERF.md)
 TRAIN_STEPS = 5            # applied steps (tests/test_feedforward.py:64-95)
 GRAD_NAMES = ("means", "scales", "quats", "opacities", "shs", "means2d_stats")
@@ -138,14 +173,46 @@ def compare(inp, exact=True, case=None):
     err, frac = torch_cases.bench_parity(ki, pi)
     res.update(anchor_err=err, anchor_frac_above_1e3=frac,
                depth_px_differ=float(np.mean(np.abs(ki[6] - pi[6]) > 1e-3)))
-    require(err < 2e-2 and frac <= 1e-3, res)
+    require(err < ANCHOR_MAX_ERR and frac <= ANCHOR_SHARE, res)
     return res
 
 
-def pair_work(inp):
-    """(pairs walked, pairs contributing) summed over pixels for this
-    input: each pixel walks its tile's window up to and including the
-    Gaussian that stops it.  Follows rasterize._composite_fwd_impl."""
+def quad(q, U, V):
+    """_chunk_eval's quadratic form of six monomial rows."""
+    return (q[0] * U + q[1] * V + q[3]) * U + (q[2] * V + q[4]) * V + q[5]
+
+
+def surely_fails(wfeat_c, u, v):
+    """gof_pair.cuh:surely_fails in f32, the decision's shortcut past the
+    divisions and the exp: (T, PIX, C) bool, set where num > max(AA,
+    1e-12) thr with thr = 2 ln(opa / (1/255)) (1 + 1e-4) + 2e-3 (-inf for
+    an opacity below 1/255).  wfeat_c (T, C, NFEAT) window features, u and
+    v (T, PIX, 1) rays.  It counts work: PyTorch's roundings may differ
+    from the kernel's by an ulp."""
+    import torch
+    from f3d_gaus_torch.ops import rasterize as R
+
+    f = wfeat_c[:, None]
+    AA = quad([f[..., R.ROW_QA + i] for i in range(6)], u, v)
+    num = quad([f[..., R.ROW_QK + i] for i in range(6)], u, v)
+    opa = f[..., R.ROW_OPA]
+    eps = torch.tensor(R.ALPHA_EPS, dtype=opa.dtype, device=opa.device)
+    thr = torch.where(opa < eps, float("-inf"),
+                      2.0 * torch.log(opa / eps) * 1.0001 + 2e-3)
+    return num > AA.clamp_min(1e-12) * thr
+
+
+def pair_work(inp, last_pos=None):
+    """The (pixel, pair)s the kernels need for this input, summed over
+    pixels: `window`, every slot of every tile's window (the decision
+    pass); `walked`, each pixel's window up to and including the Gaussian
+    that stops it (K1); with the forward's `last_pos`, `bwd`, each pixel's
+    window up to its last contributor (K2); and `contrib`, the
+    contributing pairs.  Each of the three walks comes with the count of
+    its pairs that surely_fails rules out (`<name>_rejected`).  Follows
+    rasterize._composite_fwd_impl; raises if surely_fails rules out a pair
+    that passes the decision."""
+    import collections
     import torch
     from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.ops import rasterize as R
@@ -155,30 +222,45 @@ def pair_work(inp):
     dev = feat.device
     u, v = R._tile_rays(s, dev)
     C = s.chunk
-    n = max(-(-s.max_per_tile // C), 1)
-    _, valid, wfeat = R._gather_windows(feat, bng.point_list, bng.tile_start,
-                                        bng.tile_count, n * C)
-    valid = valid & (torch.arange(n * C, device=dev) < s.max_per_tile)
+    _, valid, wfeat, n = R._windows(feat, bng.point_list, bng.tile_start,
+                                    bng.tile_count, s)
     T = torch.ones(u.shape, device=dev)
     live = torch.ones(u.shape, dtype=torch.bool, device=dev)
-    walked_n = contrib_n = 0
-    for ci in range(n):
-        sl = slice(ci * C, (ci + 1) * C)
-        ct = R._chunk_eval(wfeat[:, sl], u, v)
-        vc = ((ct["t"] > R.NEAR_PLANE) & (ct["alpha_raw"] >= R.ALPHA_EPS)
-              & valid[:, None, sl])
-        alpha = torch.where(vc, ct["alpha_raw"], 0.0)
-        T_before = T[..., None] * R._exclusive_cumprod(1.0 - alpha, -1)
-        stop = vc & (T_before * (1.0 - ct["alpha_raw"]) < R.STOP_T)
-        stop_i = stop.int()
-        reach = (torch.cumsum(stop_i, -1) - stop_i) == 0
-        walked = reach & valid[:, None, sl] & live[..., None]
-        contrib = vc & ~stop & walked
-        walked_n += int(walked.sum())
-        contrib_n += int(contrib.sum())
-        T = T * torch.prod(torch.where(contrib, 1.0 - alpha, 1.0), -1)
-        live = live & ~stop.any(-1)
-    return walked_n, contrib_n
+    work = collections.Counter()
+    with torch.no_grad():
+        for ci in range(n):
+            sl = slice(ci * C, (ci + 1) * C)
+            ct = R._chunk_eval(wfeat[:, sl], u, v)
+            vc = R._decide(ct, valid[:, sl])
+            rejected = surely_fails(wfeat[:, sl], u[..., None], v[..., None])
+            require(not bool((rejected & vc).any()),
+                    "surely_fails ruled out a pair that passes")
+            alpha = torch.where(vc, ct["alpha_raw"], 0.0)
+            T_before = T[..., None] * R._exclusive_cumprod(1.0 - alpha, -1)
+            stop = vc & (T_before * (1.0 - ct["alpha_raw"]) < R.STOP_T)
+            stop_i = stop.int()
+            reach = (torch.cumsum(stop_i, -1) - stop_i) == 0
+            inside = valid[:, None, sl].expand_as(vc)
+            walks = {"window": inside,
+                     "walked": reach & inside & live[..., None]}
+            if last_pos is not None:
+                pos = torch.arange(ci * C, (ci + 1) * C, device=dev)
+                walks["bwd"] = inside & (pos <= last_pos[..., None].long())
+            for name, m in walks.items():
+                work[name] += int(m.sum())
+                work[name + "_rejected"] += int((m & rejected).sum())
+            contrib = vc & ~stop & walks["walked"]
+            work["contrib"] += int(contrib.sum())
+            T = T * torch.prod(torch.where(contrib, 1.0 - alpha, 1.0), -1)
+            live = live & ~stop.any(-1)
+    return dict(work)
+
+
+def decide_ops(work, walk):
+    """FP32 operations of deciding the pairs of one walk of pair_work."""
+    rejected = work[walk + "_rejected"]
+    return (rejected * OPS_PER_REJECTED
+            + (work[walk] - rejected) * OPS_PER_DECIDED)
 
 
 def time_ms(fn, iters, warmup=2):
@@ -196,9 +278,18 @@ def time_ms(fn, iters, warmup=2):
     return e0.elapsed_time(e1) / iters
 
 
+def work_fields(work):
+    """pair_work's counts for a JSON line, with the share of each walk's
+    pairs that surely_fails rules out."""
+    return {"pairs_px": work, "rejected_share": {
+        k: work[k + "_rejected"] / max(work[k], 1)
+        for k in ("window", "walked", "bwd") if k in work}}
+
+
 def time_kernel(inp, iters, plain_iters):
-    """Kernel and plain-version times on one prepared input, its bound and
-    the kernel-vs-plain errors."""
+    """Kernel and plain-version times on one prepared input, whole and
+    each pass alone, the bounds, the kernel-vs-plain errors and the
+    decision pass's mask against the plain mask."""
     import torch
     from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.ops import rasterize as R
@@ -207,28 +298,52 @@ def time_kernel(inp, iters, plain_iters):
     feat = cuda_raster._all_features(pre.v2g_mb, inp.rgb, inp.opa).detach()
     args = (bng.point_list, bng.tile_start, bng.tile_count, inp.bg)
     ms = time_ms(lambda: cuda_raster.composite_fwd(feat, *args, s), iters)
+    mask = cuda_raster.decide(feat, *args[:3], s)
+    decide_ms = time_ms(lambda: cuda_raster.decide(feat, *args[:3], s), iters)
+    composite_ms = time_ms(
+        lambda: cuda_raster.composite_fwd(feat, *args, s, mask=mask), iters)
     (o1, a1), (o2, a2) = (cuda_raster.composite_fwd(feat, *args, s)
                           for _ in range(2))
     bitwise = torch.equal(o1, o2) and all(map(torch.equal, a1, a2))
     plain_ms = time_ms(lambda: R._composite_fwd_impl(feat, *args, s),
                        plain_iters, warmup=1)
-    walked, contrib = pair_work(inp)
-    ops = walked * OPS_PER_WALKED + contrib * OPS_PER_CONTRIB
+    plain_mask = []
+    decide_plain_ms = time_ms(lambda: plain_mask.append(
+        R._contrib_mask_impl(feat, *args[:3], s)), 1, warmup=0)
+    mask_check = compare_mask(inp, exact=False, plain=plain_mask.pop())
+    work = pair_work(inp)
     # bytes this input needs: each kept pair's id and each referenced
     # Gaussian's NFEAT feature columns read once, the per-tile offsets and
-    # counts, and the 9 + 6 per-pixel outputs written once
+    # counts, and the 9 + 6 per-pixel outputs written once; the passes
+    # apart also write (decision) or read (compositing) the mask words of
+    # the windows, 4 bytes per 32 slots and pixel
     ids = bng.point_list[bng.point_list < pre.radii.shape[0]]
     tiles = s.grid_x * s.grid_y
-    nbytes = (ids.numel() * 4 + int(torch.unique(ids).numel()) * R.NFEAT * 4
-              + 2 * tiles * 4 + 3 * 4 + tiles * R.PIX * (9 + 6) * 4)
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    in_bytes = (ids.numel() * 4 + int(torch.unique(ids).numel()) * R.NFEAT * 4
+                + 2 * tiles * 4)
+    out_bytes = 3 * 4 + tiles * R.PIX * (9 + 6) * 4
+    n_win = torch.clamp_max(bng.tile_count.long(), s.max_per_tile)
+    mask_bytes = int(((n_win + 31) // 32).sum()) * R.PIX * 4
+    contrib_ops = work["contrib"] * OPS_PER_CONTRIB
+    bounds = {name: bound(o, b) for name, o, b in (
+        ("", decide_ops(work, "walked") + contrib_ops, in_bytes + out_bytes),
+        ("decide_", decide_ops(work, "window"), in_bytes + mask_bytes),
+        ("composite_", contrib_ops, in_bytes + mask_bytes + out_bytes))}
     return dict(P=int(pre.radii.shape[0]), pairs=int(bng.num_pairs),
-                max_per_tile=s.max_per_tile, walked_pairs_px=walked,
-                contrib_pairs_px=contrib, ops=ops, bytes=nbytes,
+                max_per_tile=s.max_per_tile, **work_fields(work),
                 bitwise_repeatable=bitwise, ms=ms,
-                plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                **compare(inp, exact=False))
+                decide_ms=decide_ms, composite_ms=composite_ms,
+                plain_ms=plain_ms, decide_plain_ms=decide_plain_ms,
+                **{k + f: v for k, b in bounds.items() for f, v in b.items()},
+                **compare(inp, exact=False), mask=mask_check)
+
+
+def bound(ops, nbytes):
+    """The least time the card could take: operations over the FP32 peak
+    or bytes over the memory rate, whichever is larger."""
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"ops": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def bwd_inputs(inp, seed):
@@ -250,6 +365,54 @@ def bwd_inputs(inp, seed):
         feat.device)
 
 
+def pair_margins(wfeat_c, u, v):
+    """Each (pixel, pair)'s distance from a decision that two f32
+    evaluations can take differently, in units of a first-order bound on
+    any f32 evaluation's error (a flip is possible only at <= 1): wfeat_c
+    (T, C, NFEAT) window features, u and v (T, PIX, 1) f64 rays.  The f64
+    evaluation of the same f32 inputs stands for the exact value; the
+    bound takes 6 roundings of the sum of |terms| for each quadratic form,
+    3 for BB, one for the division, 2 ulp for expf and one for the product
+    with the opacity.  Returns (3, T, PIX, C) margins of the alpha test
+    (where t can pass), the t test (where alpha can pass) and the sign of
+    num (where both can)."""
+    import numpy as np
+    import torch
+    from f3d_gaus_torch.ops import rasterize as R
+
+    au, av = u.abs(), v.abs()
+    # the thresholds as the f32 comparisons see them; f32's unit roundoff
+    eps_a, near = float(np.float32(R.ALPHA_EPS)), float(np.float32(R.NEAR_PLANE))
+    ur = 2.0 ** -24
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=u.device)
+    tiny = 1e-300
+
+    f = wfeat_c[:, None].double()                            # (T, 1, C, NFEAT)
+    qa = [f[..., R.ROW_QA + i] for i in range(6)]
+    qk = [f[..., R.ROW_QK + i] for i in range(6)]
+    bv = [f[..., R.ROW_B + i] for i in range(3)]
+    A, N = quad(qa, u, v), quad(qk, u, v)
+    BB = 2.0 * (bv[0] * u + bv[1] * v + bv[2])
+    dA = 6 * ur * quad([x.abs() for x in qa], au, av)
+    dN = 6 * ur * quad([x.abs() for x in qk], au, av)
+    dB = 3 * ur * 2.0 * (bv[0].abs() * au + bv[1].abs() * av + bv[2].abs())
+    A_s = A.clamp_min(1e-12)
+    t = -BB / (2.0 * A_s)
+    mv = N.clamp_min(0.0) / A_s
+    alpha = (f[..., R.ROW_OPA] * torch.exp(-0.5 * mv)).clamp_max(0.99)
+    keep = 1.0 / (1.0 - dA / A_s).clamp_min(tiny)   # AA's error in 1/AA
+    d_t = t.abs() * (dB / BB.abs().clamp_min(tiny) + dA / A_s + 2 * ur) * keep
+    d_mv = (dN + mv * dA) / A_s * keep + ur * mv
+    d_alpha = alpha * (torch.expm1(0.5 * d_mv) + 6 * ur)
+    t_ok, a_ok = t + d_t > near, alpha + d_alpha >= eps_a
+    # a test can flip the pair only where the other one can pass, the
+    # clamp of num only where the pair can contribute
+    return torch.stack([
+        torch.where(t_ok, (alpha - eps_a).abs() / d_alpha.clamp_min(tiny), inf),
+        torch.where(a_ok, (t - near).abs() / d_t.clamp_min(tiny), inf),
+        torch.where(a_ok & t_ok, N.abs() / dN.clamp_min(tiny), inf)])
+
+
 def flip_margins(inp, aux):
     """Each Gaussian's least distance from a decision that two f32
     evaluations can take differently.  K2 decides each (pixel, pair) with
@@ -260,16 +423,11 @@ def flip_margins(inp, aux):
     pair carries its Gaussian's gradient in that pixel on one side only.
 
     For every walked pair (window position <= the pixel's last
-    contributor, which both sides take from K1) the f64 evaluation of the
-    same f32 features and rays stands for the exact value, and the margin
-    is its distance from the threshold over a first-order bound on any f32
-    evaluation's error: 6 roundings of the sum of |terms| for each
-    quadratic form, 3 for BB, one for the division, 2 ulp for expf and one
-    for the product with the opacity.  Two f32 evaluations can decide
-    differently only at a margin <= 1.  Returns the (3, P) least margin
-    over each Gaussian's walked pairs by decision (alpha, t, num; inf for
-    none) and the (P,) mask of the Gaussians walked at all."""
-    import numpy as np
+    contributor, which both sides take from K1) the margin is
+    pair_margins'.  Two f32 evaluations can decide differently only at a
+    margin <= 1.  Returns the (3, P) least margin over each Gaussian's
+    walked pairs by decision (alpha, t, num; inf for none) and the (P,)
+    mask of the Gaussians walked at all."""
     import torch
     from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.ops import rasterize as R
@@ -278,55 +436,19 @@ def flip_margins(inp, aux):
     feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
     P, dev = feat.shape[0], feat.device
     C = s.chunk
-    n = max(-(-s.max_per_tile // C), 1)
-    gids, valid, wfeat = R._gather_windows(feat, b.point_list, b.tile_start,
-                                           b.tile_count, n * C)
-    valid = valid & (torch.arange(n * C, device=dev) < s.max_per_tile)
+    gids, valid, wfeat, n = R._windows(feat, b.point_list, b.tile_start,
+                                       b.tile_count, s)
     gids = torch.where(valid, gids, P)
-    u, v = (x.double()[..., None] for x in R._tile_rays(s, dev))
-    au, av = u.abs(), v.abs()
-    # the thresholds as the f32 comparisons see them; f32's unit roundoff
-    eps_a, near = float(np.float32(R.ALPHA_EPS)), float(np.float32(R.NEAR_PLANE))
-    ur = 2.0 ** -24
-    inf = torch.tensor(float("inf"), dtype=torch.float64, device=dev)
-    tiny = 1e-300
     margin = torch.full((3, P + 1), float("inf"), dtype=torch.float64,
                         device=dev)
     walked_rows = torch.zeros(P + 1, dtype=torch.bool, device=dev)
-
-    def quad(q, U, V):
-        """_chunk_eval's quadratic form of six monomial rows."""
-        return (q[0] * U + q[1] * V + q[3]) * U + (q[2] * V + q[4]) * V + q[5]
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=dev)
+    rays = tuple(x.double()[..., None] for x in R._tile_rays(s, dev))
 
     with torch.no_grad():
         for ci in range(n):
             sl = slice(ci * C, (ci + 1) * C)
-            f = wfeat[:, None, sl].double()                  # (T, 1, C, NFEAT)
-            qa = [f[..., R.ROW_QA + i] for i in range(6)]
-            qk = [f[..., R.ROW_QK + i] for i in range(6)]
-            bv = [f[..., R.ROW_B + i] for i in range(3)]
-            A, N = quad(qa, u, v), quad(qk, u, v)
-            BB = 2.0 * (bv[0] * u + bv[1] * v + bv[2])
-            dA = 6 * ur * quad([x.abs() for x in qa], au, av)
-            dN = 6 * ur * quad([x.abs() for x in qk], au, av)
-            dB = 3 * ur * 2.0 * (bv[0].abs() * au + bv[1].abs() * av
-                                 + bv[2].abs())
-            A_s = A.clamp_min(1e-12)
-            t = -BB / (2.0 * A_s)
-            mv = N.clamp_min(0.0) / A_s
-            alpha = (f[..., R.ROW_OPA] * torch.exp(-0.5 * mv)).clamp_max(0.99)
-            keep = 1.0 / (1.0 - dA / A_s).clamp_min(tiny)   # AA's error in 1/AA
-            d_t = t.abs() * (dB / BB.abs().clamp_min(tiny) + dA / A_s
-                             + 2 * ur) * keep
-            d_mv = (dN + mv * dA) / A_s * keep + ur * mv
-            d_alpha = alpha * (torch.expm1(0.5 * d_mv) + 6 * ur)
-            t_ok, a_ok = t + d_t > near, alpha + d_alpha >= eps_a
-            # a test can flip the pair only where the other one can pass,
-            # the clamp of num only where the pair can contribute
-            m = torch.stack([
-                torch.where(t_ok, (alpha - eps_a).abs() / d_alpha.clamp_min(tiny), inf),
-                torch.where(a_ok, (t - near).abs() / d_t.clamp_min(tiny), inf),
-                torch.where(a_ok & t_ok, N.abs() / dN.clamp_min(tiny), inf)])
+            m = pair_margins(wfeat[:, sl], *rays)
             pos = torch.arange(ci * C, (ci + 1) * C, device=dev)
             walked = valid[:, None, sl] & (pos <= aux.last_pos[..., None].long())
             ids = gids[:, sl].reshape(-1)
@@ -334,6 +456,59 @@ def flip_margins(inp, aux):
             margin.scatter_reduce_(1, ids.expand(3, -1), m, "amin")
             walked_rows[ids[walked.any(1).reshape(-1)]] = True
     return margin[:, :P], walked_rows[:P]
+
+
+def popcount(words):
+    """Set bits of int32 mask words, summed (SWAR in int64)."""
+    x = words.long() & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return int((((x * 0x01010101) & 0xFFFFFFFF) >> 24).sum())
+
+
+def compare_mask(inp, exact=True, plain=None):
+    """The decision pass's mask against its plain version on one prepared
+    input (or `plain`, that version's mask already computed), over the
+    words the pass writes: equal word for word (`exact`), or each
+    differing bit a pair of some tile's window whose alpha or t decision
+    f32 rounding can flip (pair_margins <= 1)."""
+    import torch
+    from f3d_gaus_torch.ops import cuda_raster
+    from f3d_gaus_torch.ops import rasterize as R
+
+    s, b = inp.statics, inp.binning
+    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
+    slab = (b.point_list, b.tile_start, b.tile_count)
+    k = cuda_raster.decide(feat, *slab, s)
+    p = R._contrib_mask_impl(feat, *slab, s) if plain is None else plain
+    used = R.mask_words_used(b.tile_start, b.tile_count, s)
+    diff = torch.zeros_like(p)
+    diff[:used] = k[:used] ^ p[:used]
+    res = {"words": used * R.PIX, "bits_set": popcount(k[:used]),
+           "bits_differ": popcount(diff[:used])}
+    if exact or res["bits_differ"] == 0:
+        require(res["bits_differ"] == 0, res)
+        return res
+    _, valid, wfeat, n = R._windows(feat, *slab, s)
+    rays = tuple(x.double()[..., None] for x in R._tile_rays(s, feat.device))
+    C = s.chunk
+    inside = flip_a = flip_t = witnessed = 0
+    for ci in range(n):
+        sl = slice(ci * C, (ci + 1) * C)
+        d = (R._unpack_window_bits(diff, b.tile_start, ci * C, C)
+             & valid[:, None, sl])
+        if not bool(d.any()):
+            continue
+        m = pair_margins(wfeat[:, sl], *rays) <= 1.0
+        inside += int(d.sum())
+        flip_a += int((d & m[0]).sum())
+        flip_t += int((d & m[1]).sum())
+        witnessed += int((d & (m[0] | m[1])).sum())
+    res.update(bits_differ_in_windows=inside, can_flip_alpha=flip_a,
+               can_flip_t=flip_t, unwitnessed_bits=inside - witnessed)
+    require(inside == res["bits_differ"] and witnessed == inside, res)
+    return res
 
 
 def grad_agreement(kernel, plain):
@@ -351,24 +526,25 @@ def grad_agreement(kernel, plain):
             "rows_within_tol": float(ok.float().mean())}, ~ok
 
 
-def held_bwd(inp, args, kernel, plain, min_rows):
+def held_bwd(inp, args, kernel, plain, min_rows, kinds=FLIP_KINDS):
     """grad_agreement, required: at least `min_rows` of the rows within
     GRAD_TOL and, where that is below 1, each row outside holding a pair
-    whose decision can flip (flip_margins)."""
+    whose decision of one of `kinds` (of FLIP_KINDS) can flip
+    (flip_margins)."""
     res, bad = grad_agreement(kernel, plain)
     if min_rows < 1.0:
         by_kind, walked = flip_margins(inp, args[6])
         can_flip = by_kind <= 1.0
-        any_flip = can_flip.any(0)
+        any_flip = can_flip[[FLIP_KINDS.index(k) for k in kinds]].any(0)
         res.update(
-            rows_outside_tol=int(bad.sum()),
+            rows_outside_tol=int(bad.sum()), witnesses=list(kinds),
             unwitnessed_rows=int((bad & ~any_flip).sum()),
             outside_tol_can_flip={k: int((bad & can_flip[i]).sum())
-                                  for i, k in enumerate(("alpha", "t", "num"))},
+                                  for i, k in enumerate(FLIP_KINDS)},
             walked_rows=int(walked.sum()),
             walked_rows_can_flip={
                 **{k: int((walked & can_flip[i]).sum())
-                   for i, k in enumerate(("alpha", "t", "num"))},
+                   for i, k in enumerate(FLIP_KINDS)},
                 "any": int((walked & any_flip).sum())})
         require(res["unwitnessed_rows"] == 0, res)
     require(res["rows_within_tol"] >= min_rows, res)
@@ -387,6 +563,45 @@ def compare_bwd(inp, seed, min_rows=1.0):
     p = R._composite_bwd_impl(*args)
     torch.cuda.synchronize()
     return held_bwd(inp, args, k, p, min_rows)
+
+
+def compare_given_mask(inp, seed, min_rows):
+    """The compositing and backward passes against their plain versions
+    with both given the decision pass's mask, so that no alpha or t
+    decision is left to flip.  The forwards must agree on the stop and
+    median-depth positions (last_pos, max_pos) on all but
+    GIVEN_MASK_POS_SHARE of the pixels, and on the pixels where they agree
+    hold all of out9 and final_T to bench.py's anchor (ANCHOR_*: what is
+    left is the f32 rounding of alpha's monomial form).  The backwards, on
+    the kernel forward's residuals and a seeded cotangent, must hold
+    held_bwd with only the clamp of num left as a witness."""
+    import torch
+    from f3d_gaus_torch.ops import cuda_raster
+    from f3d_gaus_torch.ops import rasterize as R
+
+    feat, extra, slab, _, g = bwd_inputs(inp, seed)
+    s = inp.statics
+    mask = cuda_raster.decide(feat, *slab[:3], s)
+    ko, ka = cuda_raster.composite_fwd(feat, *slab, s, mask=mask)
+    po, pa = R._composite_fwd_impl(feat, *slab, s, mask=mask)
+    same = (ka.last_pos == pa.last_pos) & (ka.max_pos == pa.max_pos)
+    err = torch.cat([(ko - po).abs(), (ka.final_T - pa.final_T).abs()[
+        ..., None]], -1)[same]
+    require(err.numel() > 0, "the forwards agree on no pixel's positions")
+    worst = err.amax(1)
+    fwd = {"pixels": same.numel(), "pos_differ": int((~same).sum()),
+           "max_abs_err": float(worst.max()),
+           "channel_max_abs_err": err.amax(0).tolist(),
+           "share_above": {f"{x:g}": float((worst > x).float().mean())
+                           for x in (1e-5, 1e-4, ANCHOR_ABOVE)}}
+    require(fwd["pos_differ"] <= GIVEN_MASK_POS_SHARE * fwd["pixels"]
+            and fwd["max_abs_err"] < ANCHOR_MAX_ERR
+            and fwd["share_above"][f"{ANCHOR_ABOVE:g}"] <= ANCHOR_SHARE, fwd)
+    args = (feat, extra, *slab, ka, g, s)
+    kb = cuda_raster.composite_bwd(*args, mask=mask)
+    pb = R._composite_bwd_impl(*args, mask=mask)
+    return {"fwd": fwd, "bwd": held_bwd(inp, args, kb, pb, min_rows,
+                                        kinds=("num",))}
 
 
 def compare_chain(cam, cloud, bg, kw, dev, seed):
@@ -419,8 +634,9 @@ def compare_chain(cam, cloud, bg, kw, dev, seed):
 
 
 def time_kernel_bwd(inp, iters, seed):
-    """K2 and plain-backward times on one prepared input, its bound, the
-    agreement and whether two launches agree bit for bit."""
+    """K2's times on one prepared input, whole and each pass alone, the
+    plain backward's, the bounds, the agreement (of the gradients and of
+    the decision mask) and whether two launches agree bit for bit."""
     import torch
     from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.ops import rasterize as R
@@ -429,6 +645,10 @@ def time_kernel_bwd(inp, iters, seed):
     feat, extra, slab, aux, g = bwd_inputs(inp, seed)
     args = (feat, extra, *slab, aux, g, s)
     ms = time_ms(lambda: cuda_raster.composite_bwd(*args), iters)
+    mask = cuda_raster.decide(feat, *slab[:3], s)
+    decide_ms = time_ms(lambda: cuda_raster.decide(feat, *slab[:3], s), iters)
+    backward_ms = time_ms(lambda: cuda_raster.composite_bwd(*args, mask=mask),
+                          iters)
     k1, k2 = (cuda_raster.composite_bwd(*args) for _ in range(2))
     torch.cuda.synchronize()
     bitwise = all(torch.equal(x, y) for x, y in zip(k1, k2))
@@ -436,15 +656,18 @@ def time_kernel_bwd(inp, iters, seed):
     plain_ms = time_ms(lambda: plain.append(R._composite_bwd_impl(*args)), 1,
                        warmup=0)
     agree = held_bwd(inp, args, k1, plain[0], TRAIN_ROWS)
+    agree["mask"] = compare_mask(inp, exact=False)
+    agree["given_mask"] = compare_given_mask(inp, seed, TRAIN_ROWS)
 
     # the work this input needs: every (pixel, pair) up to the pixel's last
-    # contributor is decided, every contributor pulled back
-    walked = int((aux.last_pos.long() + 1).sum())
-    contrib = pair_work(inp)[1]
-    ops = walked * OPS_PER_WALKED_BWD + contrib * OPS_PER_CONTRIB_BWD
+    # contributor is decided, every contributor pulled back; the decision
+    # pass alone decides every pair of the windows
+    work = pair_work(inp, aux.last_pos)
+    contrib_ops = work["contrib"] * OPS_PER_CONTRIB_BWD
     # bytes: the ids of each tile's walked window and the 24 columns of each
     # Gaussian in it read once, the 13 per-pixel inputs, the tile offsets,
-    # and a read-modify-write of each such Gaussian's 22 gradient columns
+    # and a read-modify-write of each such Gaussian's 22 gradient columns;
+    # the passes apart also write or read the windows' mask words
     gids, valid, _ = R._gather_windows(feat[:, :1], b.point_list,
                                        b.tile_start, b.tile_count,
                                        s.max_per_tile)
@@ -454,15 +677,19 @@ def time_kernel_bwd(inp, iters, seed):
     n_ids = int(walked_slots.sum())
     uniq = int(torch.unique(gids[walked_slots]).numel())
     tiles = s.grid_x * s.grid_y
-    nbytes = (n_ids * 4 + uniq * (R.NFEAT + 5) * 4 + 2 * tiles * 4 + 3 * 4
-              + tiles * R.PIX * 13 * 4 + uniq * (R.NFEAT + 3) * 4 * 2)
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    in_bytes = n_ids * 4 + uniq * (R.NFEAT + 5) * 4 + 2 * tiles * 4 + 3 * 4
+    rest_bytes = tiles * R.PIX * 13 * 4 + uniq * (R.NFEAT + 3) * 4 * 2
+    n_win = torch.clamp_max(b.tile_count.long(), s.max_per_tile)
+    mask_bytes = int(((n_win + 31) // 32).sum()) * R.PIX * 4
+    bounds = {name: bound(o, nb) for name, o, nb in (
+        ("", decide_ops(work, "bwd") + contrib_ops, in_bytes + rest_bytes),
+        ("decide_", decide_ops(work, "window"), in_bytes + mask_bytes),
+        ("backward_", contrib_ops, in_bytes + mask_bytes + rest_bytes))}
     return dict(P=int(feat.shape[0]), pairs=int(b.num_pairs),
-                max_per_tile=s.max_per_tile, walked_pairs_px=walked,
-                contrib_pairs_px=contrib, ops=ops, bytes=nbytes,
-                bitwise_repeatable=bitwise, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                max_per_tile=s.max_per_tile, **work_fields(work),
+                bitwise_repeatable=bitwise, ms=ms, decide_ms=decide_ms,
+                backward_ms=backward_ms, plain_ms=plain_ms,
+                **{k + f: v for k, b in bounds.items() for f, v in b.items()},
                 **agree)
 
 
@@ -544,7 +771,8 @@ def device_profile(run, top=10):
     return {"wall_us": wall_us, "device_busy_us": busy_us,
             "busy_share": busy_us / wall_us,
             "raster_kernels_us": {k: sum(r[1] for r in rows if k in r[0])
-                                  for k in ("raster_fwd", "raster_bwd")},
+                                  for k in ("gof_decide", "raster_fwd",
+                                            "raster_bwd")},
             "top": [{"op": k[:80], "device_us": t, "calls": c}
                     for k, t, c in rows[:top]]}
 
@@ -597,16 +825,20 @@ def build(card):
 
 
 def kernels_vs_plain(dev, seed):
-    """Phase 2: K1 and K2 against their plain versions on the 32^2 cases
-    and the flagship; returns the flagship's K2 agreement."""
+    """Phase 2: the decision pass, K1 and K2 against their plain versions
+    on the 32^2 cases and the flagship; returns the flagship's K2
+    agreement and the mask comparisons."""
     import numpy as np
     import torch
     from f3d_gaus_torch.ops import rasterize as R
     import torch_cases
 
+    masks = []
     for name, cam, cloud, bg, kw in torch_cases.small_cases(seed):
         inp = R.prepare(*cloud_to(cloud, dev), cam,
                         torch.from_numpy(bg).to(dev), **kw)
+        masks.append(compare_mask(inp))
+        emit("decide_vs_plain", case=name, tol="equal words", **masks[-1])
         emit("kernel_vs_plain", case=name, tol=1e-4,
              **compare(inp, case=name))
         res = compare_bwd(inp, seed)
@@ -618,6 +850,9 @@ def kernels_vs_plain(dev, seed):
     caps = R.plan_caps(*tc[:4], cam)
     inp = R.prepare(*tc, cam, **caps)
     require(not bool(inp.binning.overflow), "flagship caps overflow")
+    masks.append(compare_mask(inp, exact=False))
+    emit("decide_vs_plain", case="flagship_256_65536", caps=caps,
+         tol="each differing bit a pair that can flip", **masks[-1])
     emit("kernel_vs_plain", case="flagship_256_65536", caps=caps,
          tol="anchor: channels 0-5,7,8 max < 2e-2, <= 0.1% above 1e-3",
          **compare(inp, exact=False))
@@ -625,8 +860,11 @@ def kernels_vs_plain(dev, seed):
     emit("kernel_vs_plain_bwd", case="flagship_256_65536", caps=caps,
          tol=f"{GRAD_TOL} x max|g| per column on >= {FLAGSHIP_ROWS} of rows, "
              "each row outside with a pair that can flip", **flag)
+    given = [compare_given_mask(inp, seed, FLAGSHIP_ROWS)]
+    emit("given_mask_vs_plain", case="flagship_256_65536",
+         tol=GIVEN_MASK_TOL_TEXT, **given[-1])
     torch.cuda.synchronize()
-    return flag
+    return flag, masks, given
 
 
 def serving_path(args, dev, card):
@@ -654,6 +892,7 @@ def serving_path(args, dev, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_raster.launches = cuda_raster.launches_bwd = 0
+    cuda_raster.launches_decide = 0
     t0 = time.perf_counter()
     res = cycle.run_nvs_replanned(model, cfg, cams, images, depth,
                                   device=dev, log=replans.append,
@@ -661,6 +900,7 @@ def serving_path(args, dev, card):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches, launches_bwd = cuda_raster.launches, cuda_raster.launches_bwd
+    launches_decide = cuda_raster.launches_decide
     peak = torch.cuda.max_memory_allocated()
 
     P_px = cfg.resolution ** 2
@@ -677,16 +917,17 @@ def serving_path(args, dev, card):
     require(not bool(res.renders["overflow"].any())
             and not bool(res.agg_views["overflow"].any()),
             "overflow after replanning")
-    require(launches == (n_agg + n_nvs) * res.attempts > 0
+    require(launches == launches_decide == (n_agg + n_nvs) * res.attempts > 0
             and launches_bwd == 0,
-            f"{launches} K1 / {launches_bwd} K2 launches for {res.attempts} "
-            "attempts")
+            f"{launches} K1 / {launches_decide} decision / {launches_bwd} K2 "
+            f"launches for {res.attempts} attempts")
     emit("main_path", card=card, config="PipelineConfig()",
          num_nvs_views=cfg.num_nvs_views, params=n_params,
          attempts=res.attempts, replans=replans,
          caps={"pair_cap": res.cfg.pair_cap,
                "max_per_tile": res.cfg.max_per_tile},
-         kernel_launches=launches, wall_s=wall_s,
+         kernel_launches=launches, decide_launches=launches_decide,
+         wall_s=wall_s,
          stage_s_last_attempt=timings, peak_allocated_bytes=peak,
          merged_points=int(res.merged["xyz"].shape[1]))
 
@@ -710,7 +951,7 @@ def serving_path(args, dev, card):
          **render_breakdown(res.merged, nvs_cam, fcfg))
     emit("nvs_render_profile", card=card,
          **profile_render(res.merged, nvs_cam, fcfg))
-    return launches, shapes, (n_nvs, n_agg + n_nvs)
+    return (launches, launches_decide), shapes, (n_nvs, n_agg + n_nvs)
 
 
 def training_path(args, dev, card):
@@ -742,9 +983,11 @@ def training_path(args, dev, card):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cuda_raster.launches = cuda_raster.launches_bwd = 0
+    cuda_raster.launches_decide = 0
     t_start = time.perf_counter()
     while len(steps) < TRAIN_STEPS:
         f0, b0 = cuda_raster.launches, cuda_raster.launches_bwd
+        d0 = cuda_raster.launches_decide
         timings = {}
         t0 = time.perf_counter()
         try:
@@ -763,15 +1006,20 @@ def training_path(args, dev, card):
                 and np.isfinite(loss.item()), terms)
         require(not bool(aux["overflow"].any()), "overflow in an applied step")
         k1, k2 = cuda_raster.launches - f0, cuda_raster.launches_bwd - b0
-        require(k1 == k2 == 3 * B, f"step launches K1 {k1}, K2 {k2}, B {B}")
+        kd = cuda_raster.launches_decide - d0
+        require(k1 == k2 == 3 * B and kd == 6 * B,
+                f"step launches K1 {k1}, K2 {k2}, decision {kd}, B {B}")
         steps.append({"loss": loss.item(), **terms, "wall_s": wall,
                       **{f"{k}_s": v for k, v in timings.items()}})
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t_start
-    launches = (cuda_raster.launches, cuda_raster.launches_bwd)
+    launches = (cuda_raster.launches, cuda_raster.launches_bwd,
+                cuda_raster.launches_decide)
     peak = torch.cuda.max_memory_allocated()
     require(launches == (3 * B * (len(steps) + len(attempts)),
-                         3 * B * len(steps)), f"launches {launches}")
+                         3 * B * len(steps),
+                         3 * B * (2 * len(steps) + len(attempts))),
+            f"launches {launches}")
     moved = max(float((v.detach() - p0[k]).abs().max())
                 for k, v in state.model.named_parameters())
     require(moved > 0, "parameters did not move")
@@ -780,7 +1028,8 @@ def training_path(args, dev, card):
     emit("train_path", card=card, config="PipelineConfig()", batch=B,
          lr=1e-4, applied_steps=len(steps), replans=attempts,
          caps={"pair_cap": cfg.pair_cap, "max_per_tile": cfg.max_per_tile},
-         launches_k1=launches[0], launches_k2=launches[1], total_s=total_s,
+         launches_k1=launches[0], launches_k2=launches[1],
+         launches_decide=launches[2], total_s=total_s,
          peak_allocated_bytes=peak, max_param_change=moved, steps=steps)
     # two more steps, after the counted ones: where a step's time goes
     emit("train_step_profile", card=card, batch=B, **device_profile(
@@ -813,12 +1062,21 @@ def training_path(args, dev, card):
                                  args.seed) for k, g in timed.items()}
     for k, v in shapes.items():
         emit("kernel_timing_bwd", card=card, shape=k, **v)
+    masks = [v["mask"] for v in shapes.values()]
+    given = [v["given_mask"] for v in shapes.values()]
     for k, g in other.items():
+        inp = prepared(g, cam, cfg)
         emit("kernel_vs_plain_bwd", case=f"train_{k}_image1",
              tol=f"{GRAD_TOL} x max|g| per column on >= {TRAIN_ROWS} of "
                  "rows, each row outside with a pair that can flip",
-             **compare_bwd(prepared(g, cam, cfg), args.seed + 1, TRAIN_ROWS))
-    return launches, shapes, B
+             **compare_bwd(inp, args.seed + 1, TRAIN_ROWS))
+        masks.append(compare_mask(inp, exact=False))
+        emit("decide_vs_plain", case=f"train_{k}_image1",
+             tol="each differing bit a pair that can flip", **masks[-1])
+        given.append(compare_given_mask(inp, args.seed + 1, TRAIN_ROWS))
+        emit("given_mask_vs_plain", case=f"train_{k}_image1",
+             tol=GIVEN_MASK_TOL_TEXT, **given[-1])
+    return launches, shapes, B, masks, given
 
 
 def main(argv=None) -> int:
@@ -840,30 +1098,49 @@ def main(argv=None) -> int:
     card = card_line()
 
     build(card)
-    flagship_bwd = kernels_vs_plain(dev, args.seed)
-    serve_launches, fwd_shapes, (n_nvs, n_render) = serving_path(args, dev, card)
-    (train_k1, train_k2), bwd_shapes, B = training_path(args, dev, card)
+    flagship_bwd, masks, given = kernels_vs_plain(dev, args.seed)
+    (serve_k1, serve_decide), fwd_shapes, (n_nvs, n_render) = serving_path(
+        args, dev, card)
+    masks += [v["mask"] for v in fwd_shapes.values()]
+    (train_k1, train_k2, train_decide), bwd_shapes, B, train_masks, \
+        train_given = training_path(args, dev, card)
+    masks += train_masks
+    given += train_given
 
     nvs, cano = fwd_shapes["nvs"], bwd_shapes["canonical"]
+    given_note = (f"; given the decision pass's mask, on {len(given)} inputs "
+                  "(flagship, 4 training renders)")
+    csrc = "f3d_gaus_torch/csrc/"
     kernels = [{
         "name": "raster_fwd", "route": "cuda",
-        "source": "f3d_gaus_torch/csrc/raster_fwd.cu",
+        "source": csrc + "raster_fwd.cu",
+        "sources": [csrc + f for f in ("gof_decide.cu", "raster_fwd.cu",
+                                       "gof_pair.cuh")],
         "replaces": "f3d_gaus_tpu/ops/pallas_raster.py:230",
-        "launches": serve_launches + train_k1,
-        "launches_by_path": {"serving": serve_launches, "training": train_k1},
+        "launches": serve_k1 + train_k1,
+        "launches_by_path": {"serving": serve_k1, "training": train_k1},
         "max_abs_err": nvs["anchor_err"],
         "ms": nvs["ms"], "plain_ms": nvs["plain_ms"],
         "bound_ms": nvs["bound_ms"], "bound_by": nvs["bound_by"],
         "library_ms": None,
         "at": f"NVS render, P={nvs['P']} ({n_nvs} of {n_render} serving "
-              f"launches per attempt; {3 * B} per training step); "
-              "max_abs_err over out9 channels 0-5,7,8",
+              f"launches per attempt; {3 * B} per training step); ms is "
+              "the decision pass and the compositing pass together; "
+              "max_abs_err over out9 channels 0-5,7,8; given_mask_* "
+              "against the plain version" + given_note,
+        "given_mask_max_abs_err": max(x["fwd"]["max_abs_err"] for x in given),
+        "given_mask_pos_differ": sum(x["fwd"]["pos_differ"] for x in given),
+        "passes": {k: {f: v[f] for f in (
+            "decide_ms", "decide_bound_ms", "composite_ms",
+            "composite_bound_ms")} for k, v in fwd_shapes.items()},
         "shapes": {k: {f: v[f] for f in ("P", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "anchor_err")}
                    for k, v in fwd_shapes.items()},
     }, {
         "name": "raster_bwd", "route": "cuda",
-        "source": "f3d_gaus_torch/csrc/raster_bwd.cu",
+        "source": csrc + "raster_bwd.cu",
+        "sources": [csrc + f for f in ("gof_decide.cu", "raster_bwd.cu",
+                                       "gof_pair.cuh")],
         "replaces": "f3d_gaus_tpu/ops/pallas_raster.py:401",
         "launches": train_k2,
         "launches_by_path": {"serving": 0, "training": train_k2},
@@ -872,14 +1149,48 @@ def main(argv=None) -> int:
         "bound_ms": cano["bound_ms"], "bound_by": cano["bound_by"],
         "library_ms": None,
         "at": f"canonical training render, P={cano['P']} ({B} of {3 * B} "
-              "launches per training step); max_abs_err over d_feat and "
+              "launches per training step); ms is the decision pass and "
+              "the backward pass together; max_abs_err over d_feat and "
               f"d_stats (largest |g| {cano['max_abs_grad']:.6g}, rows within "
               f"{GRAD_TOL} x max|g| {cano['rows_within_tol']:.6g}); flagship "
-              f"max_abs_err {flagship_bwd['max_abs_err']:.6g}",
+              f"max_abs_err {flagship_bwd['max_abs_err']:.6g}; given_mask_* "
+              "against the plain backward" + given_note,
+        "given_mask_rows_within_tol": min(x["bwd"]["rows_within_tol"]
+                                          for x in given),
+        "given_mask_rows_outside_tol": sum(x["bwd"]["rows_outside_tol"]
+                                           for x in given),
+        "passes": {k: {f: v[f] for f in (
+            "decide_ms", "decide_bound_ms", "backward_ms",
+            "backward_bound_ms")} for k, v in bwd_shapes.items()},
         "shapes": {k: {f: v[f] for f in ("P", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "max_abs_err",
                                          "bitwise_repeatable")}
                    for k, v in bwd_shapes.items()},
+    }, {
+        "name": "gof_decide", "route": "cuda",
+        "source": csrc + "gof_decide.cu",
+        "replaces": "f3d_gaus_tpu/ops/pallas_raster.py:262",
+        "launches": serve_decide + train_decide,
+        "launches_by_path": {"serving": serve_decide,
+                             "training": train_decide},
+        "max_abs_err": int(any(m["bits_differ"] for m in masks)),
+        "bits_differ": sum(m["bits_differ"] for m in masks),
+        "ms": nvs["decide_ms"], "plain_ms": nvs["decide_plain_ms"],
+        "bound_ms": nvs["decide_bound_ms"],
+        "bound_by": nvs["decide_bound_by"], "library_ms": None,
+        "at": f"NVS render, P={nvs['P']}: the decision of K1 and K2 (the vc "
+              "of _fwd_kernel :262 and _bwd_kernel :444), launched once by "
+              "each; max_abs_err is 1 where any mask bit differed from the "
+              f"plain mask over {len(masks)} inputs, "
+              f"{sum(m['bits_differ'] for m in masks)} of "
+              f"{sum(m['bits_set'] for m in masks)} set bits differing, "
+              "each a pair whose decision can flip; rejected_share: the "
+              "windows' pairs gof_pair.cuh:surely_fails rules out",
+        "shapes": {k: {"rejected_share": v["rejected_share"]["window"],
+                       **{f: v[f] for f in ("P", "decide_ms",
+                                            "decide_plain_ms",
+                                            "decide_bound_ms") if f in v}}
+                   for k, v in {**fwd_shapes, **bwd_shapes}.items()},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -4,15 +4,19 @@ f3d_gaus_tpu/ops/rasterize.py).
 `render` runs preprocess -> binning -> compositing.  Compositing has two
 implementations of each direction:
 
-  * the hand-written CUDA kernels (ops/cuda_raster.py): csrc/raster_fwd.cu
-    for the forward and csrc/raster_bwd.cu for its gradient, which every
-    render on CUDA tensors goes through;
-  * `_composite_fwd_impl` / `_composite_bwd_impl`, their plain PyTorch
-    versions: the JAX package's chunked parallel-compositing formulation
-    (exclusive cumulative products for transmittance, the stop rule as a
-    mask; a reverse chunk walk with the pull-back through
-    `torch.func.vjp` of `_chunk_eval`), used for CPU tensors and as the
-    yardstick the kernels are held against.
+  * the hand-written CUDA kernels (ops/cuda_raster.py), which every render
+    on CUDA tensors goes through: the decision pass csrc/gof_decide.cu
+    (one bit per slab slot and pixel: t > 0.2, alpha >= 1/255, inside the
+    window), then csrc/raster_fwd.cu over the set bits for the forward and
+    csrc/raster_bwd.cu for its gradient;
+  * `_contrib_mask_impl`, `_composite_fwd_impl` / `_composite_bwd_impl`,
+    their plain PyTorch versions: the same packed mask, and the JAX
+    package's chunked parallel-compositing formulation (exclusive
+    cumulative products for transmittance, the stop rule as a mask; a
+    reverse chunk walk with the pull-back through `torch.func.vjp` of
+    `_chunk_eval`), used for CPU tensors and as the yardstick the kernels
+    are held against.  Given a mask, the compositing versions take its
+    bits as the decision; without one they decide themselves.
 
 `composite` is a `torch.autograd.Function` over the (P, NFEAT) feature
 table and a (P, 3) densification-stats dummy; its backward keeps the
@@ -53,6 +57,11 @@ ROW_QK = 6
 ROW_B = 12
 ROW_RGB = 15
 ROW_OPA = 18
+# The decision mask: bit s % 32 of word [s // 32, pixel] holds the decision
+# of slab slot s for that pixel of its tile.  The decision pass walks the
+# slab in blocks of MASK_SLOTS slots; tile segments start at multiples of
+# it, so neither a block nor a word straddles two tiles.
+MASK_SLOTS = 128
 
 
 class RasterStatics(NamedTuple):
@@ -189,20 +198,108 @@ def _gather_windows(feat, point_list, tile_start, tile_count, K):
     return gids, win_valid, featz[gids]
 
 
+def _windows(feat, point_list, tile_start, tile_count, s: RasterStatics):
+    """_gather_windows over s.max_per_tile rounded up to whole chunks, the
+    validity cut at max_per_tile: (gids, win_valid, wfeat, chunk count)."""
+    n_chunks = max(-(-s.max_per_tile // s.chunk), 1)
+    K = n_chunks * s.chunk
+    gids, win_valid, wfeat = _gather_windows(feat, point_list, tile_start,
+                                             tile_count, K)
+    win_valid = win_valid & (torch.arange(K, device=feat.device)
+                             < s.max_per_tile)
+    return gids, win_valid, wfeat, n_chunks
+
+
+def _decide(ct, wv_c):
+    """The decision of every (pixel, pair) of a chunk from _chunk_eval's
+    maps and the chunk's window validity (T, C): (T, PIX, C) bool."""
+    return ((ct["t"] > NEAR_PLANE) & (ct["alpha_raw"] >= ALPHA_EPS)
+            & wv_c[:, None, :])
+
+
+def mask_shape(point_list):
+    """Shape of the decision mask of a slab: (slab / 32 words, PIX)."""
+    return (point_list.shape[0] // 32, PIX)
+
+
+def mask_words_used(tile_start, tile_count, s: RasterStatics) -> int:
+    """How many leading words of the mask the decision pass writes: those
+    of the MASK_SLOTS-slot blocks up to the end of the last tile's window
+    (a host sync)."""
+    n = min(int(tile_count[-1]), s.max_per_tile)
+    end = int(tile_start[-1]) + -(-n // MASK_SLOTS) * MASK_SLOTS
+    return end // 32
+
+
+def _unpack_window_bits(mask, tile_start, pos0, C):
+    """The mask's bits at window positions pos0 .. pos0 + C - 1 of every
+    tile, as (T, PIX, C) bool.  Positions past a tile's window read other
+    words (another tile's, or past the mask: clamped); the caller masks
+    them with the window validity."""
+    pos = pos0 + torch.arange(C, device=mask.device)
+    word = (tile_start.long()[:, None] + pos[None, :]) // 32
+    vals = mask[word.clamp_max(mask.shape[0] - 1)].permute(0, 2, 1)
+    # contiguous, as _decide's maps are: the layout of a mask decides the
+    # summation order of what it selects
+    return ((vals >> (pos % 32).int()) & 1).bool().contiguous()
+
+
+def _pack_window_bits(bits_of_chunk, n_chunks, C, tile_start, tile_count,
+                      s: RasterStatics, shape):
+    """Packs per-window decisions into the mask layout.  bits_of_chunk(ci)
+    gives window positions ci * C .. ci * C + C - 1 as (T, PIX, C) bool;
+    the words that hold a window position of their tile are filled, every
+    other word of `shape` is 0."""
+    dev = tile_start.device
+    T = tile_start.shape[0]
+    n_words = -(-n_chunks * C // 32)
+    words = torch.zeros((T, PIX, n_words), dtype=torch.int64, device=dev)
+    for ci in range(n_chunks):
+        pos = ci * C + torch.arange(C, device=dev)
+        words.index_add_(2, pos // 32,
+                         bits_of_chunk(ci).long() << (pos % 32))
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    n = torch.clamp_max(tile_count.long(), s.max_per_tile)
+    w = torch.arange(n_words, device=dev)
+    sel = w[None, :] < ((n + 31) // 32)[:, None]                  # (T, W)
+    rows = tile_start.long()[:, None] // 32 + w[None, :]
+    mask = torch.zeros(shape, dtype=torch.int32, device=dev)
+    mask[rows[sel]] = words.permute(0, 2, 1)[sel].to(torch.int32)
+    return mask
+
+
+def _contrib_mask_impl(feat, point_list, tile_start, tile_count,
+                       s: RasterStatics):
+    """Plain PyTorch decision pass: the (slab / 32, PIX) int32 mask of
+    cuda_raster.decide, word for word, from _chunk_eval's t and alpha_raw
+    and the window validity (the vc of _composite_fwd_impl).  Words past
+    mask_words_used, which the kernel leaves unwritten, are 0."""
+    u, v = _tile_rays(s, feat.device)
+    _, win_valid, wfeat, n_chunks = _windows(feat, point_list, tile_start,
+                                             tile_count, s)
+    C = s.chunk
+
+    def bits(ci):
+        sl = slice(ci * C, (ci + 1) * C)
+        with torch.no_grad():
+            return _decide(_chunk_eval(wfeat[:, sl], u, v), win_valid[:, sl])
+    return _pack_window_bits(bits, n_chunks, C, tile_start, tile_count, s,
+                             mask_shape(point_list))
+
+
 def _composite_fwd_impl(feat, point_list, tile_start, tile_count, bg,
-                        s: RasterStatics):
+                        s: RasterStatics, mask=None):
     """Plain PyTorch compositing forward: feat (P, NFEAT) monomial table,
-    the aligned slab, bg (3,).  Walks each tile's window in chunks of
-    s.chunk; returns (out (num_tiles, PIX, 9), aux: RenderAux)."""
+    the aligned slab, bg (3,) and optionally the decision mask
+    (_contrib_mask_impl's layout), whose bits then stand for the decision.
+    Walks each tile's window in chunks of s.chunk; returns (out (num_tiles,
+    PIX, 9), aux: RenderAux)."""
     dev, dt = feat.device, feat.dtype
     T_tiles = s.grid_x * s.grid_y
     u, v = _tile_rays(s, dev)
     C = s.chunk
-    n_chunks = max(-(-s.max_per_tile // C), 1)
-    K = n_chunks * C
-    _, win_valid, wfeat = _gather_windows(feat, point_list, tile_start,
-                                          tile_count, K)
-    win_valid = win_valid & (torch.arange(K, device=dev) < s.max_per_tile)
+    _, win_valid, wfeat, n_chunks = _windows(feat, point_list, tile_start,
+                                             tile_count, s)
 
     def z(*sh):
         return torch.zeros((T_tiles, PIX) + tuple(sh), dtype=dt, device=dev)
@@ -219,7 +316,9 @@ def _composite_fwd_impl(feat, point_list, tile_start, tile_count, bg,
         wv_c = win_valid[:, ci * C:(ci + 1) * C]
         ct = _chunk_eval(feat_c, u, v)
         t, m = ct["t"], ct["m"]
-        vc = (t > NEAR_PLANE) & (ct["alpha_raw"] >= ALPHA_EPS) & wv_c[:, None, :]
+        vc = (_decide(ct, wv_c) if mask is None else
+              _unpack_window_bits(mask, tile_start, ci * C, C)
+              & wv_c[:, None, :])
         alpha = torch.where(vc, ct["alpha_raw"], zero)
 
         om = 1.0 - alpha
@@ -273,27 +372,25 @@ def _composite_fwd_impl(feat, point_list, tile_start, tile_count, bg,
 
 
 def _composite_bwd_impl(feat, extra, point_list, tile_start, tile_count, bg,
-                        aux: RenderAux, g_out, s: RasterStatics):
+                        aux: RenderAux, g_out, s: RasterStatics, mask=None):
     """Plain PyTorch compositing backward: the reverse chunk walk of the
     CUDA reference (backward.cu:738-953), as the JAX package restates it.
 
     feat (P, NFEAT) and extra (P, 5) = [conic | means2d] tables, the aligned
     slab, bg (3,), the forward's RenderAux and g_out (num_tiles, PIX, 9),
-    the cotangent of out9.  Suffix sums accumulate exactly from zero, T is
-    rebuilt from final_T by division, the contributor mask re-uses the
-    forward's last_pos, and the chunk cotangents are pulled back through
-    torch.func.vjp of _chunk_eval.  Returns (d_feat (P, NFEAT), d_stats
-    (P, 3)), the per-Gaussian densification statistics |dL/dmean2d| through
-    the conic."""
+    the cotangent of out9, and optionally the forward's decision mask
+    (_contrib_mask_impl's layout), whose bits then stand for the decision.
+    Suffix sums accumulate exactly from zero, T is rebuilt from final_T by
+    division, the contributor mask re-uses the forward's last_pos, and the
+    chunk cotangents are pulled back through torch.func.vjp of _chunk_eval.
+    Returns (d_feat (P, NFEAT), d_stats (P, 3)), the per-Gaussian
+    densification statistics |dL/dmean2d| through the conic."""
     P = feat.shape[0]
     dev, dt = feat.device, feat.dtype
     u, v = _tile_rays(s, dev)
     C = s.chunk
-    n_chunks = max(-(-s.max_per_tile // C), 1)
-    K = n_chunks * C
-    gids, win_valid, wall = _gather_windows(
-        torch.cat([feat, extra], 1), point_list, tile_start, tile_count, K)
-    win_valid = win_valid & (torch.arange(K, device=dev) < s.max_per_tile)
+    gids, win_valid, wall, n_chunks = _windows(
+        torch.cat([feat, extra], 1), point_list, tile_start, tile_count, s)
 
     gL_rgb, gL_nn = g_out[..., 0:3], g_out[..., 3:6]
     gL_depth = g_out[..., 6]
@@ -318,8 +415,9 @@ def _composite_bwd_impl(feat, extra, point_list, tile_start, tile_count, bg,
         sl = slice(ci * C, (ci + 1) * C)
         feat_c, ex_c = wall[:, sl, :NFEAT], wall[:, sl, NFEAT:]
         ct, vjp_fn = torch.func.vjp(lambda f: _chunk_eval(f, u, v), feat_c)
-        alpha_raw, t = ct["alpha_raw"], ct["t"]
-        vc = ((t > NEAR_PLANE) & (alpha_raw >= ALPHA_EPS)
+        alpha_raw = ct["alpha_raw"]
+        vc = (_decide(ct, win_valid[:, sl]) if mask is None else
+              _unpack_window_bits(mask, tile_start, ci * C, C)
               & win_valid[:, None, sl])
         pos = (ci * C + torch.arange(C, dtype=torch.int32, device=dev))[None, None, :]
         contrib = vc & (pos <= aux.last_pos[..., None])

@@ -1,6 +1,7 @@
-"""The CUDA compositing kernels (csrc/raster_fwd.cu, csrc/raster_bwd.cu)
-against their plain PyTorch versions on the card, and one feed-forward
-training step there.  Needs a CUDA device and nvcc; skips elsewhere.
+"""The CUDA compositing kernels (the decision pass csrc/gof_decide.cu,
+csrc/raster_fwd.cu, csrc/raster_bwd.cu) against their plain PyTorch
+versions on the card, and one feed-forward training step there.  Needs a
+CUDA device and nvcc; skips elsewhere.
 Imports no JAX, so on the card's machine it runs without the JAX
 package's conftest:
 
@@ -52,6 +53,30 @@ def test_kernel_matches_plain(cuda, case):
     assert torch.equal(k["aux"].max_pos, p["aux"].max_pos)
 
 
+@pytest.mark.parametrize("case", CASE_NAMES)
+def test_decide_kernel_matches_plain_mask(cuda, case):
+    """The decision pass's words equal the plain mask's, word for word, and
+    the compositing pass given that mask repeats composite_fwd's result."""
+    name, cam, cloud, bg, kw = next(c for c in torch_cases.small_cases()
+                                    if c[0] == case)
+    inp = TR.prepare(*[torch.from_numpy(a).to(cuda) for a in cloud], cam,
+                     torch.from_numpy(bg).to(cuda), **kw)
+    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
+    b, s = inp.binning, inp.statics
+    slab = (b.point_list, b.tile_start, b.tile_count)
+    before = cuda_raster.launches_decide
+    k = cuda_raster.decide(feat, *slab, s)
+    torch.cuda.synchronize()
+    assert cuda_raster.launches_decide == before + 1
+    p = TR._contrib_mask_impl(feat, *slab, s)
+    used = TR.mask_words_used(b.tile_start, b.tile_count, s)
+    assert used > 0 or case == "behind_camera"
+    assert torch.equal(k[:used], p[:used])
+    o1, a1 = cuda_raster.composite_fwd(feat, *slab, inp.bg, s)
+    o2, a2 = cuda_raster.composite_fwd(feat, *slab, inp.bg, s, mask=k)
+    assert torch.equal(o1, o2) and all(map(torch.equal, a1, a2))
+
+
 def test_kernel_matches_plain_flagship_slice(cuda):
     """bench.py's anchor on a 4096-Gaussian slice of the 256^2 cloud."""
     cam, cloud = torch_cases.bench_scene(np.random.default_rng(0))
@@ -76,6 +101,11 @@ def test_wrapper_rejects_bad_inputs(cuda):
         cuda_raster.composite_fwd(allf, pl, ts[:3], ts, bg, s)
     with pytest.raises(ValueError):
         cuda_raster.composite_fwd(allf.cpu(), pl, ts, ts, bg, s)
+    with pytest.raises(ValueError):   # the mask is (256 / 32, 256) int32
+        cuda_raster.composite_fwd(allf, pl, ts, ts, bg, s, mask=torch.zeros(
+            (8, 256), dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError):
+        cuda_raster.decide(allf, pl[:200], ts, ts, s)
     out, aux = cuda_raster.composite_fwd(allf, pl, ts, ts, bg, s)
     torch.cuda.synchronize()
     assert (aux.final_T == 1).all() and (aux.last_pos == -1).all()
@@ -146,9 +176,11 @@ def test_train_step_on_the_card(cuda):
     batch = {"images": rng.uniform(size=(2, 32, 32, 3)).astype(np.float32),
              "depth": rng.uniform(6.8, 8.5, size=(2, 32, 32)).astype(np.float32)}
     f0, b0 = cuda_raster.launches, cuda_raster.launches_bwd
+    d0 = cuda_raster.launches_decide
     loss, aux = TF.train_step(state, cfg, batch, pack)
     torch.cuda.synchronize()
     assert np.isfinite(loss.item()) and state.step == 1
     assert cuda_raster.launches - f0 == 6 and cuda_raster.launches_bwd - b0 == 6
+    assert cuda_raster.launches_decide - d0 == 12
     for p in state.model.parameters():
         assert torch.isfinite(p.grad).all()

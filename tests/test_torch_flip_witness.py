@@ -2,7 +2,11 @@
 outside the gradient tolerance (flip_margins / held_bwd), on the CPU with
 the plain versions standing in for the kernels: it accepts agreement,
 refuses a classification threshold moved by 0.3 %, and finds the pair
-whose alpha is put on 1/255."""
+whose alpha is put on 1/255.  Likewise its check of the decision pass's
+mask (compare_mask): a bit that differs at that pair is witnessed, one at
+a pair far from every threshold, or outside the windows, is refused.  And
+its check of the compositing passes given the decision mask
+(compare_given_mask), where only the clamp of num may witness a row."""
 import os
 import sys
 
@@ -56,14 +60,12 @@ def test_witness_accepts_agreement_and_refuses_a_shifted_threshold(monkeypatch):
         S.held_bwd(inp, args, shifted, plain, 0.0)
 
 
-def test_flip_margins_find_a_pair_at_the_alpha_threshold():
+def _pair_at_threshold():
+    """A contributing pair with a later contributor in its pixel (so it
+    stays walked), its Gaussian's opacity set so that alpha there is 1/255:
+    the inputs, the pair's (tile, pixel, window position) and Gaussian."""
     inp, args = _inputs()
     aux, s, b = args[6], inp.statics, inp.binning
-    margin, walked = S.flip_margins(inp, aux)
-    assert walked.any() and not (margin[:, walked] <= 1.0).any()
-
-    # a contributing pair with a later contributor in its pixel (so it stays
-    # walked), its Gaussian's opacity set so that alpha there is 1/255
     gids, valid, wfeat = TR._gather_windows(args[0], b.point_list,
                                             b.tile_start, b.tile_count,
                                             s.max_per_tile)
@@ -78,5 +80,102 @@ def test_flip_margins_find_a_pair_at_the_alpha_threshold():
     opa = inp.opa.clone()
     opa[gid] = float(np.float32(TR.ALPHA_EPS)) / float(ev["G"][ti, pi, ki])
     inp2, args2 = _inputs(opa)
+    return inp2, args2, (ti, pi, ki), gid, pair
+
+
+def test_flip_margins_find_a_pair_at_the_alpha_threshold():
+    inp, args = _inputs()
+    margin, walked = S.flip_margins(inp, args[6])
+    assert walked.any() and not (margin[:, walked] <= 1.0).any()
+    inp2, args2, _, gid, _ = _pair_at_threshold()
     margin2, walked2 = S.flip_margins(inp2, args2[6])
     assert walked2[gid] and margin2[0, gid] <= 1.0
+
+
+def _flipped(mask, tile_start, ti, pi, ki):
+    """The mask with the bit of window position ki of tile ti, pixel pi,
+    flipped."""
+    slot = int(tile_start[ti]) + ki
+    word = int(mask[slot // 32, pi]) ^ (1 << (slot % 32))
+    out = mask.clone()
+    out[slot // 32, pi] = word - (1 << 32) if word >= 1 << 31 else word
+    return out
+
+
+@pytest.mark.parametrize("where", ["at_threshold", "far", "outside"])
+def test_mask_witness(monkeypatch, where):
+    """compare_mask takes a differing bit at the pair put on alpha = 1/255,
+    and refuses one at a contributing pair far from every threshold or in
+    the padding past a tile's window."""
+    inp, args, (ti, pi, ki), gid, pair = _pair_at_threshold()
+    s, b = inp.statics, inp.binning
+    if where == "far":
+        ti, pi, ki = next(
+            p for p in pair.tolist()
+            if int(b.point_list[b.tile_start[p[0]] + p[2]]) != gid)
+    elif where == "outside":
+        ti = int(torch.argmax((b.tile_count % 32 != 0).int()))
+        ki = int(b.tile_count[ti])   # the slot after the window, same word
+    plain = TR._contrib_mask_impl(args[0], *args[2:5], s)
+    monkeypatch.setattr(cuda_raster, "decide", lambda *a: _flipped(
+        plain, b.tile_start, ti, pi, ki))
+    if where == "at_threshold":
+        res = S.compare_mask(inp, exact=False)
+        assert res["bits_differ"] == 1 and res["can_flip_alpha"] == 1
+        with pytest.raises(RuntimeError, match="bits_differ': 1"):
+            S.compare_mask(inp)
+    else:
+        why = {"far": "unwitnessed_bits': 1",
+               "outside": "bits_differ_in_windows': 0"}[where]
+        with pytest.raises(RuntimeError, match=why):
+            S.compare_mask(inp, exact=False)
+
+
+@pytest.mark.parametrize("where", ["agree", "forward", "forward_tile",
+                                   "backward"])
+def test_given_mask_check(monkeypatch, where):
+    """compare_given_mask, with the plain versions standing in for the
+    kernels: it accepts them against themselves; refuses a forward 3e-2
+    off at one pixel, or 2e-3 off on a whole tile (a quarter of the
+    pixels); and refuses a backward row moved at the Gaussian put on
+    alpha = 1/255, which held_bwd with every witness accepts: given the
+    mask, only the clamp of num is left to flip."""
+    inp, args, _, gid, _ = _pair_at_threshold()
+    fwd, bwd = TR._composite_fwd_impl, TR._composite_bwd_impl
+
+    def fwd_off(*a, **kw):
+        out, aux = fwd(*a, **kw)
+        out = out.clone()
+        if where == "forward":
+            out[0, 0, 0] += 3e-2
+        else:
+            out[0, :, 1] += 2e-3
+        return out, aux
+
+    def bwd_off(*a, **kw):
+        d_feat, d_stats = bwd(*a, **kw)
+        d_feat = d_feat.clone()
+        d_feat[gid] *= 2.0
+        return d_feat, d_stats
+
+    monkeypatch.setattr(cuda_raster, "decide", TR._contrib_mask_impl)
+    monkeypatch.setattr(cuda_raster, "composite_fwd",
+                        fwd_off if where.startswith("forward") else fwd)
+    monkeypatch.setattr(cuda_raster, "composite_bwd",
+                        bwd_off if where == "backward" else bwd)
+    if where == "agree":
+        res = S.compare_given_mask(inp, 0, S.TRAIN_ROWS)
+        assert res["fwd"]["pos_differ"] == 0 and res["fwd"]["max_abs_err"] == 0
+        assert res["bwd"]["rows_within_tol"] == 1.0
+    elif where.startswith("forward"):
+        why = {"forward": r"'max_abs_err': 0\.0[23]",
+               "forward_tile": "'0.001': 0.25"}[where]
+        with pytest.raises(RuntimeError, match=why):
+            S.compare_given_mask(inp, 0, S.TRAIN_ROWS)
+    else:
+        margin, _ = S.flip_margins(inp, args[6])
+        assert margin[0, gid] <= 1.0 < margin[2, gid]
+        res = S.held_bwd(inp, args, bwd_off(*args), bwd(*args), 0.0)
+        assert res["rows_outside_tol"] == 1 and res["unwitnessed_rows"] == 0
+        with pytest.raises(RuntimeError, match="unwitnessed_rows': 1"):
+            S.compare_given_mask(inp, 0, 0.0)

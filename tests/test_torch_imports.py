@@ -46,6 +46,40 @@ def test_no_jax_in_the_port():
                    timeout=120)
 
 
+def test_kernel_loader_imports_without_a_toolchain():
+    """cuda_raster imports, and computes its build key, with no nvcc on
+    PATH and CUDA_HOME pointing nowhere; building is what would fail."""
+    code = ("from f3d_gaus_torch.ops import cuda_raster as C\n"
+            "assert C._libs is None and len(C.build_key()) == 16\n"
+            "try:\n    C._nvcc()\nexcept RuntimeError:\n    pass\n"
+            "else:\n    raise AssertionError('found an nvcc')\n")
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable),
+               CUDA_HOME=os.path.join(ROOT, "no-cuda-here"))
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                   check=True, timeout=120)
+
+
+def test_build_key_covers_every_file_under_csrc(tmp_path):
+    """Editing a header, or adding a file, changes the key under which the
+    kernel libraries are built and loaded."""
+    import shutil
+    from f3d_gaus_torch.ops import cuda_raster
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_raster.CSRC, csrc)
+    assert {p.name for p in csrc.iterdir()} >= {
+        "gof_pair.cuh", "gof_decide.cu", "raster_fwd.cu", "raster_bwd.cu"}
+    key = cuda_raster.build_key(csrc)
+    assert key == cuda_raster.build_key(cuda_raster.CSRC)
+    header = csrc / "gof_pair.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    edited = cuda_raster.build_key(csrc)
+    assert edited != key
+    (csrc / "extra.cuh").write_text("// new\n")
+    assert cuda_raster.build_key(csrc) not in (key, edited)
+    assert cuda_raster.build_key(csrc, flags=["-O2"]) != cuda_raster.build_key(
+        csrc)
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
