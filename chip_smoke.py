@@ -5,9 +5,10 @@
 
 Phases, one JSON line each:
   1. environment: torch, CUDA, nvcc, the card; builds the decision pass
-     csrc/gof_decide.cu, csrc/raster_fwd.cu and csrc/raster_bwd.cu anew
-     for sm_90a (one nvcc each, in parallel; all include
-     csrc/gof_pair.cuh) and prints ptxas's register/shared-memory lines;
+     csrc/gof_decide.cu, csrc/raster_fwd.cu, csrc/raster_bwd.cu (all
+     including csrc/gof_pair.cuh) and csrc/integrate.cu anew for sm_90a
+     (one nvcc each, in parallel) and prints ptxas's register/shared-memory
+     lines;
   2. decide_vs_plain: the decision pass's mask against its plain version
      (rasterize._contrib_mask_impl): word for word on the 32^2 cases of
      tests/torch_cases.py; on the flagship each differing bit must be a
@@ -28,6 +29,13 @@ Phases, one JSON line each:
      given_mask_vs_plain: on the flagship, the compositing and backward
      passes against their plain versions given the same decision mask
      (compare_given_mask: no alpha or t decision left to flip);
+     integrate_vs_plain: the field-query kernel csrc/integrate.cu
+     against its plain version (ops/integrate.py:_alpha_impl): one view's
+     field and the running minimum over a 3-view orbit within 2e-5 (the
+     JAX package's tolerance) on the 32^2 cases of
+     tests/torch_cases.integrate_cases; on the flagship cloud's
+     9-per-Gaussian seed points at the frontal NVS view and the bench
+     camera, bench.py's anchor (max < 2e-2, <= 0.1 % above 1e-3);
   3. main_path (serving): cycle.run_nvs_replanned at PipelineConfig() width
      (256^2, base_dim 128, 8 aggregation views, 128+1 NVS views) with
      random EDM weights from a seeded torch.Generator on a numpy-made RGB-D
@@ -43,7 +51,24 @@ Phases, one JSON line each:
      two launches agree bit for bit, and the split of one
      NVS render into preprocess, binning, compositing and the rest, with
      a torch.profiler trace of that render;
-  5. train_path: feedforward.train_step at PipelineConfig() width on
+  5. mesh_path: cli.main without --skip_mesh at PipelineConfig() width
+     (128 + 1 NVS views) on one numpy-made RGB-D image written as PNG and
+     16-bit _depth.png, with the seeded EDM weights' opacity bias raised
+     to 1.0 (at the init no point reaches alpha 0.5 and the mesh is
+     empty); requires a mesh_binary_search.ply with faces that reads
+     back, no truncated field view, 129 x (1 + 8) field-query launches
+     and (8 + 129) K1 launches per attempt; reports extract_mesh's stage
+     seconds and counts, the CLI's wall time and peak memory;
+  6. integrate_timing: the field query at that run's first-forward
+     Gaussians, seed points, frontal NVS camera and caps: kernel and
+     plain times, the view's preprocess / binning / projection times
+     each alone, the agreement under the anchor (one view's field, and
+     the running minimum written in place into a seeded field), the
+     bound (the pairs whose alpha fails 1/255 charged less:
+     field_pair_work), and a traced piece of the real sweep
+     (sweep_profile: each stage's share of a view, the device's busy
+     share);
+  7. train_path: feedforward.train_step at PipelineConfig() width on
      TRAIN_BATCH numpy-made RGB-D images (the yaml's 7 does not fit in
      80 GB), one fixed novel camera, lr 1e-4, TRAIN_STEPS applied steps;
      the caps double on RenderOverflow (the step runs again, unapplied);
@@ -52,7 +77,7 @@ Phases, one JSON line each:
      pass once for each of them; per-step forward / backward / optimizer
      seconds and peak allocated memory; then a torch.profiler trace of one
      more step;
-  6. kernel_timing_bwd: K2 at the training step's two shapes (canonical
+  8. kernel_timing_bwd: K2 at the training step's two shapes (canonical
      render, P = 65,536; cycle render, P = 131,072) of image 0, whole and
      each pass alone (decide_ms, backward_ms), beside the plain backward
      and the bound, and whether two launches agree bit for bit; K2 held
@@ -118,6 +143,16 @@ GIVEN_MASK_TOL_TEXT = (
     f"{ANCHOR_SHARE} of pixels above {ANCHOR_ABOVE}; bwd: {GRAD_TOL} x "
     "max|g| per column, each row outside with a pair whose clamp of num "
     "can flip")
+# the field query: the JAX package's own tolerance at 32^2
+# (tests/test_integrate.py:83); FP32 operations per (point, pair), counted
+# from csrc/integrate.cu:pair_factor (an FMA counts 2): 43 for a pair whose
+# alpha reaches 1/255, 37 for one that fails (its ray quadratic, 36, and a
+# compare of val against 2 ln(255 opa); no exp); the mesh path's bisection
+# steps (extract_mesh's binary_steps)
+INTEGRATE_TOL = 2e-5
+OPS_PER_PAIR_INTEGRATE = 43
+OPS_PER_FAILING_INTEGRATE = 37
+MESH_STEPS = 8
 TRAIN_BATCH = 6            # images per step; 7 need ~86.5e9 bytes (PERF.md)
 TRAIN_STEPS = 5            # applied steps (tests/test_feedforward.py:64-95)
 GRAD_NAMES = ("means", "scales", "quats", "opacities", "shs", "means2d_stats")
@@ -772,7 +807,7 @@ def device_profile(run, top=10):
             "busy_share": busy_us / wall_us,
             "raster_kernels_us": {k: sum(r[1] for r in rows if k in r[0])
                                   for k in ("gof_decide", "raster_fwd",
-                                            "raster_bwd")},
+                                            "raster_bwd", "integrate_kernel")},
             "top": [{"op": k[:80], "device_us": t, "calls": c}
                     for k, t, c in rows[:top]]}
 
@@ -807,7 +842,7 @@ def smooth_rgbd(rng, r):
 
 
 def build(card):
-    """Phase 1: the environment, and both kernels built anew."""
+    """Phase 1: the environment, and every kernel built anew."""
     import torch
     from f3d_gaus_torch.ops import cuda_raster
 
@@ -955,7 +990,7 @@ def serving_path(args, dev, card):
 
 
 def training_path(args, dev, card):
-    """Phases 5 and 6: feedforward.train_step at full width with the launch
+    """Phases 7 and 8: feedforward.train_step at full width with the launch
     counts set to 0 just before the steps, then K2's timing at the
     canonical and cycle renders of the trained weights."""
     import numpy as np
@@ -1079,6 +1114,391 @@ def training_path(args, dev, card):
     return launches, shapes, B, masks, given
 
 
+def field_agreement(kernel, plain):
+    """The field-query kernel's alpha against the plain version's: the
+    largest error and the share of points above ANCHOR_ABOVE."""
+    err = (kernel - plain).abs()
+    return {"points": int(err.numel()),
+            "max_abs_err": float(err.max()) if err.numel() else 0.0,
+            "share_above_1e3": float((err > ANCHOR_ABOVE).float().mean())}
+
+
+def integrate_vs_plain(dev, seed):
+    """Phase 2, integrate_vs_plain: the field-query kernel against its plain
+    version: one view's field and the running minimum over a 3-view orbit
+    within 2e-5 on the 32^2 cases of tests/torch_cases.integrate_cases; on
+    the flagship cloud, its 9-per-Gaussian seed points at the frontal NVS
+    view and at the bench camera under bench.py's anchor.  Returns the
+    largest error on the 32^2 cases."""
+    import numpy as np
+    import torch
+    from f3d_gaus_torch.mesh import points as MP
+    from f3d_gaus_torch.ops import cuda_raster
+    from f3d_gaus_torch.ops import integrate as TI
+    from f3d_gaus_torch.ops import rasterize as R
+    from f3d_gaus_torch.pipeline import config as C
+    from f3d_gaus_torch.pipeline import cycle
+    from f3d_gaus_torch.pipeline import dataset as D
+    import torch_cases
+
+    orbit = torch_cases.orbit_views(3)
+    views = (orbit.world_view, orbit.full_proj, orbit.cam_centers)
+    size = dict(width=32, height=32, tan_fovx=torch_cases.TAN,
+                tan_fovy=torch_cases.TAN)
+    worst = 0.0
+    for name, cam, cloud, pts, kw in torch_cases.integrate_cases(seed):
+        tc, tp = cloud_to(cloud, dev), torch.from_numpy(pts).to(dev)
+        n0 = cuda_raster.launches_integrate
+        k = TI.integrate_points(*tc, cam, tp, **kw)["alpha_integrated"]
+        km = TI.integrate_min_alpha(*tc, *views, tp, **size, **kw)
+        torch.cuda.synchronize()
+        n = cuda_raster.launches_integrate - n0
+        p = TI.integrate_points(*tc, cam, tp, backend="torch",
+                                **kw)["alpha_integrated"]
+        pm = TI.integrate_min_alpha(*tc, *views, tp, backend="torch", **size,
+                                    **kw)
+        res = {"view": field_agreement(k, p),
+               "min_over_3_views": field_agreement(km, pm), "launches": n}
+        err = max(res["view"]["max_abs_err"],
+                  res["min_over_3_views"]["max_abs_err"])
+        worst = max(worst, err)
+        require(n == 4 and err <= INTEGRATE_TOL, res)
+        emit("integrate_vs_plain", case=name, tol=INTEGRATE_TOL, **res)
+    cfg = C.PipelineConfig()
+    cam, cloud = torch_cases.bench_scene(np.random.default_rng(seed))
+    tc = cloud_to(cloud, dev)
+    frontal = cycle.nvs_cameras(cfg, D.canonical_cameras(
+        cfg).inverse_first_camera).camera(0, cfg.resolution, cfg.resolution,
+                                          cfg.tan_fov, cfg.tan_fov)
+    for view, c in (("frontal", frontal), ("bench_camera", cam)):
+        pts, _ = MP.tetra_points(cloud[0], cloud[1], cloud[2],
+                                 c.world_view[None], cfg.fov_deg,
+                                 resolution=cfg.resolution)
+        tp = torch.from_numpy(pts).to(dev)
+        caps = R.plan_caps(*tc[:4], c)
+        over = TI.overflow_views
+        k = TI.integrate_points(*tc, c, tp, **caps)["alpha_integrated"]
+        p = TI.integrate_points(*tc, c, tp, backend="torch",
+                                **caps)["alpha_integrated"]
+        res = field_agreement(k, p)
+        require(TI.overflow_views == over, "flagship binning truncated")
+        require(res["max_abs_err"] < ANCHOR_MAX_ERR
+                and res["share_above_1e3"] <= ANCHOR_SHARE, res)
+        emit("integrate_vs_plain", case=f"flagship_256_65536_{view}",
+             caps=caps, tol="anchor: max < 2e-2, <= 0.1% of points above 1e-3",
+             field_mean=float(k.mean()), **res)
+    torch.cuda.synchronize()
+    return worst
+
+
+def write_rgbd(folder, image, depth):
+    """One input of the demo dataset: s0.png and its 16-bit s0_depth.png
+    (pipeline/dataset.py reads the depth as I / 65536 and normalises it)."""
+    import numpy as np
+    from PIL import Image
+    os.makedirs(folder, exist_ok=True)
+    Image.fromarray((np.clip(image, 0, 1) * 255).round().astype(np.uint8)
+                    ).save(os.path.join(folder, "s0.png"))
+    d = (depth - depth.min()) / (depth.max() - depth.min())
+    Image.fromarray((d * 65535).round().astype(np.uint16)).save(
+        os.path.join(folder, "s0_depth.png"))
+
+
+def mesh_path(args, dev, card):
+    """Phase 5: cli.main without --skip_mesh at PipelineConfig() width on one
+    numpy-made RGB-D image written as PNGs, with the raised-opacity
+    weights, the launch counts and integrate's overflow count set to 0
+    just before it.  Requires a non-empty mesh that reads back, no
+    truncated view and 129 x (1 + 8) field-query launches."""
+    import contextlib
+    import io
+    import shutil
+    import numpy as np
+    import torch
+    from f3d_gaus_torch import cli
+    from f3d_gaus_torch.io import ply
+    from f3d_gaus_torch.ops import cuda_raster
+    from f3d_gaus_torch.ops import integrate as TI
+    from f3d_gaus_torch.pipeline import config as C
+    import torch_cases
+
+    cfg = C.PipelineConfig()
+    work = os.path.join(ROOT, "build", "mesh_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    images, depth = smooth_rgbd(np.random.default_rng(args.seed + 2),
+                                cfg.resolution)
+    write_rgbd(os.path.join(work, "input"), images[0], depth[0])
+    ckpt = os.path.join(work, "raised_opacity.pt")
+    torch_cases.raised_opacity_checkpoint(ckpt, cfg, args.seed)
+    out = os.path.join(work, "out")
+    argv = ["--folder", os.path.join(work, "input"), "--output_path", out,
+            "--load_model", ckpt, "--num_nvs_views", str(args.num_nvs_views)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_raster.launches = cuda_raster.launches_bwd = 0
+    cuda_raster.launches_decide = cuda_raster.launches_integrate = 0
+    TI.overflow_views = 0
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"integrate": cuda_raster.launches_integrate,
+                "raster_fwd": cuda_raster.launches,
+                "gof_decide": cuda_raster.launches_decide,
+                "raster_bwd": cuda_raster.launches_bwd}
+    overflow_views = TI.overflow_views
+    peak = torch.cuda.max_memory_allocated()
+    lines = log.getvalue().splitlines()
+    require(rc == 0, f"cli exit {rc}: {lines[-5:]}")
+    d = os.path.join(out, "00_00")
+    with open(os.path.join(d, "mesh_stats.json")) as f:
+        stats = json.load(f)
+    v, faces, _ = ply.read_mesh_ply(os.path.join(d, "mesh_binary_search.ply"))
+    n_views = args.num_nvs_views + 1
+    n_renders = (cfg.num_aggregation_views + n_views) * stats["attempts"]
+    require(overflow_views == 0, f"{overflow_views} truncated field views")
+    require(len(v) > 0 and len(faces) > 0 and bool(np.isfinite(v).all())
+            and faces.min() >= 0 and faces.max() < len(v)
+            and stats["counts"]["faces"] == len(faces),
+            f"mesh {v.shape} {faces.shape}")
+    require(launches["integrate"] == n_views * (1 + MESH_STEPS)
+            and launches["raster_fwd"] == launches["gof_decide"] == n_renders
+            and launches["raster_bwd"] == 0, launches)
+    emit("mesh_path", card=card, config="PipelineConfig()",
+         weights="seeded EDM init, out.bias[3] = 1.0 (opacity logit)",
+         num_nvs_views=args.num_nvs_views, method=stats["method"],
+         attempts=stats["attempts"],
+         caps={"pair_cap": stats["pair_cap"],
+               "max_per_tile": stats["max_per_tile"]},
+         counts=stats["counts"], mesh_stage_s=stats["stage_s"],
+         cli_wall_s=wall_s, peak_allocated_bytes=peak, launches=launches,
+         overflow_views=overflow_views,
+         cli_log=[ln for ln in lines if "replanning" in ln or "mesh:" in ln])
+    return {"out_dir": d, "stats": stats, "launches": launches,
+            "n_views": n_views}
+
+
+def field_pair_work(slab, q, s):
+    """The (point, pair)s the field query needs at one view: `pairs`, each
+    inside point against every slot of its tile's window
+    min(tile_count, max_per_tile), and `passing`, those whose alpha reaches
+    1/255 (integrate._pair_alpha in f32: it counts work, and PyTorch's
+    roundings may differ from the kernel's by an ulp).  Walks the windows
+    as integrate._alpha_impl does."""
+    import torch
+    from f3d_gaus_torch.ops import integrate as TI
+
+    v2g_mb, opa, point_list, tile_start, tile_count = slab
+    P, T = v2g_mb.shape[0], tile_start.shape[0]
+    rows = torch.cat([v2g_mb, opa[:, None]], 1)
+    rows = torch.cat([rows, rows.new_zeros((1, 13))], 0)
+    order = torch.argsort(torch.where(q.inside, q.tile, T), stable=True)
+    n_pts = torch.bincount(q.tile[q.inside].long(), minlength=T).tolist()
+    count = torch.clamp_max(tile_count, s.max_per_tile).tolist()
+    start = tile_start.tolist()
+    pairs, passing, pos = 0, torch.zeros((), dtype=torch.int64), 0
+    passing = passing.to(v2g_mb.device)
+    with torch.no_grad():
+        for t in range(T):
+            pts = order[pos:pos + n_pts[t]]
+            pos += n_pts[t]
+            pairs += len(pts) * count[t]
+            for lo in range(0, len(pts), s.point_chunk):
+                sel = pts[lo:lo + s.point_chunk]
+                for c0 in range(0, count[t], s.chunk):
+                    ids = point_list[start[t] + c0:
+                                     start[t] + min(c0 + s.chunk, count[t])]
+                    alpha = TI._pair_alpha(rows[ids.long().clamp(0, P)][None],
+                                           q.u[sel], q.v[sel], q.depth[sel])
+                    passing += (alpha > 0).sum()
+    return {"pairs": pairs, "passing": int(passing)}
+
+
+def sweep_profile(gauss, cams, pts, cfg, pair_cap, mpt, n_views=8):
+    """The first n_views views of the real integrate_min_alpha at the mesh
+    run's shape: the time per view on the device's clock and each stage's
+    share of it (CUDA events recorded around preprocess, binning, the
+    points' projection and the field query as the sweep calls them, with
+    no sync between them, so a stage's time includes the device's waits on
+    the host inside it; `other` is what lies between the stages), and
+    device_profile's busy share and top operators of the same call."""
+    import torch
+    from f3d_gaus_torch.core import gaussians as G
+    from f3d_gaus_torch.ops import binning as B
+    from f3d_gaus_torch.ops import integrate as TI
+
+    views = tuple(a[:n_views] for a in (cams.world_view, cams.full_proj,
+                                         cams.cam_centers))
+
+    def sweep():
+        TI.integrate_min_alpha(
+            *gauss, *views, pts, width=cfg.resolution,
+            height=cfg.resolution, tan_fovx=cfg.tan_fov,
+            tan_fovy=cfg.tan_fov, sh_degree=cfg.max_sh_degree,
+            pair_cap=pair_cap, max_per_tile=mpt, chunk=cfg.chunk)
+
+    marks = []
+
+    def timed(name, fn):
+        def run(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            r = fn(*a, **k)
+            e1.record()
+            marks.append((name, e0, e1))
+            return r
+        return run
+
+    stages = {"preprocess": (G, "preprocess"),
+              "binning": (B, "bin_gaussians"),
+              "query_rays": (TI, "query_rays"),
+              "field_query": (TI, "_view_alpha")}
+    saved = {k: getattr(*mod) for k, mod in stages.items()}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    try:
+        for k, (mod, attr) in stages.items():
+            setattr(mod, attr, timed(k, saved[k]))
+        sweep()
+        torch.cuda.synchronize()
+        marks.clear()
+        start.record()
+        sweep()
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        for k, (mod, attr) in stages.items():
+            setattr(mod, attr, saved[k])
+    total = start.elapsed_time(end)
+    stage_ms = {k: sum(e0.elapsed_time(e1) for n, e0, e1 in marks if n == k)
+                for k in stages}
+    require(all(sum(n == k for n, _, _ in marks) == n_views for k in stages),
+            "a sweep stage ran other than once per view")
+    prof = device_profile(sweep)
+    return {"views": n_views, "ms_per_view": total / n_views,
+            "stage_ms_per_view": {k: v / n_views for k, v in stage_ms.items()},
+            "stage_share": {**{k: v / total for k, v in stage_ms.items()},
+                            "other": 1 - sum(stage_ms.values()) / total},
+            "profile_wall_ms_per_view": prof["wall_us"] / 1e3 / n_views,
+            "busy_share": prof["busy_share"],
+            "device_busy_ms_per_view": prof["device_busy_us"] / 1e3 / n_views,
+            "top": prof["top"]}
+
+
+def integrate_timing(mesh, args, dev, card):
+    """Phase 6: the field query at the mesh run's shape: its first-forward
+    Gaussians (read back from its gaussians.ply), its seed points, the
+    frontal NVS camera and its settled caps.  The kernel (with the
+    wrapper's sort of the points by tile) by CUDA events, its device time
+    alone by the profiler, the plain version, the same view's preprocess,
+    binning and projection each alone, the agreement under bench.py's
+    anchor in both modes (one view's field, and the running minimum written
+    in place into a seeded field), the bound from this view's data, and
+    sweep_profile: where the time of a view goes inside a sweep."""
+    import numpy as np
+    import torch
+    from f3d_gaus_torch.core import gaussians as G
+    from f3d_gaus_torch.io import ply
+    from f3d_gaus_torch.mesh import points as MP
+    from f3d_gaus_torch.ops import binning as B
+    from f3d_gaus_torch.ops import cuda_raster
+    from f3d_gaus_torch.ops import integrate as TI
+    from f3d_gaus_torch.ops import rasterize as R
+    from f3d_gaus_torch.pipeline import config as C
+    from f3d_gaus_torch.pipeline import cycle
+    from f3d_gaus_torch.pipeline import dataset as D
+
+    cfg = dataclasses.replace(C.PipelineConfig(),
+                              num_nvs_views=args.num_nvs_views)
+    st = mesh["stats"]
+    pair_cap, mpt = st["pair_cap"], st["max_per_tile"]
+    g = ply.read_gaussian_ply(os.path.join(mesh["out_dir"], "gaussians.ply"))
+    nvs = cycle.nvs_cameras(cfg, D.canonical_cameras(cfg).inverse_first_camera)
+    pts, _ = MP.tetra_points(g["xyz"], g["scaling"], g["rotation"],
+                             nvs.world_view, cfg.fov_deg,
+                             resolution=cfg.resolution)
+    require(len(pts) == st["counts"]["seed_points"],
+            f"{len(pts)} seed points, the run had {st['counts']}")
+    res = cfg.resolution
+    cam = nvs.camera(0, res, res, cfg.tan_fov, cfg.tan_fov)
+    shs = np.concatenate([g["f_dc"], g["f_rest"]], 1)
+    gauss = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        g["xyz"], g["scaling"], g["rotation"], g["opacity"], shs))
+    s = TI._statics(cam, mpt, cfg.chunk, 1 << 14)
+    tp = torch.from_numpy(pts).to(dev)
+    preprocess_ms = time_ms(lambda: G.preprocess(*gauss, cfg.max_sh_degree,
+                                                 cam, 0.0), 5)
+    pre, bng, trunc = TI._prepare_view(gauss, cam, cfg.max_sh_degree, 0.0,
+                                       pair_cap, mpt)
+    require(not bool(trunc), "the timed view's binning is truncated")
+    binning_ms = time_ms(lambda: B.bin_gaussians(
+        pre.means2d, pre.radii, pre.depths, res, res, pair_cap,
+        max_per_tile=mpt), 5)
+    query_rays_ms = time_ms(lambda: TI.query_rays(tp, cam, s), 5)
+    q = TI.query_rays(tp, cam, s)
+    slab = (pre.v2g_mb, pre.opa_coef, bng.point_list, bng.tile_start,
+            bng.tile_count)
+    kargs = (*slab, q.u, q.v, q.depth, q.tile, q.inside, mpt)
+    ms = time_ms(lambda: cuda_raster.integrate(*kargs), TIMED_LAUNCHES)
+    prof = device_profile(lambda: cuda_raster.integrate(*kargs))
+    k = cuda_raster.integrate(*kargs)
+    plain = []
+    plain_ms = time_ms(lambda: plain.append(TI._alpha_impl(*slab, q, s)), 1,
+                       warmup=0)
+    agree = field_agreement(k, plain[0])
+    # the sweep's mode: min(out, 1 - T) written in place, into a seeded
+    # field in [0, 1] so that both sides of the minimum occur
+    Q = tp.shape[0]
+    seeded = torch.rand(Q, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(args.seed))
+    out = seeded.clone()
+    require(cuda_raster.integrate(*kargs, out=out) is out,
+            "the running minimum was not written in place")
+    running_min = field_agreement(out, torch.minimum(seeded, plain[0]))
+    for a in (agree, running_min):
+        require(a["max_abs_err"] < ANCHOR_MAX_ERR
+                and a["share_above_1e3"] <= ANCHOR_SHARE, a)
+
+    # the work this view's data needs: each inside point against each slot
+    # of its tile's window, those whose alpha fails 1/255 charged
+    # OPS_PER_FAILING_INTEGRATE; the bytes: the points' u, v, depth and
+    # sorted index read and their field written once, the window ids and
+    # the 13-float row of each Gaussian in them (tiles that hold points),
+    # and the tiles' offsets, counts and segment starts
+    work = field_pair_work(slab, q, s)
+    pairs = work["pairs"]
+    ops = (work["passing"] * OPS_PER_PAIR_INTEGRATE
+           + (pairs - work["passing"]) * OPS_PER_FAILING_INTEGRATE)
+    tiles_in = q.tile.long()[q.inside]
+    occupied = torch.unique(tiles_in)
+    gids, valid, _ = R._gather_windows(pre.opa_coef[:, None], bng.point_list,
+                                       bng.tile_start, bng.tile_count, mpt)
+    sel = valid[occupied]
+    n_ids = int(sel.sum())
+    uniq = int(torch.unique(gids[occupied][sel]).numel())
+    T = bng.tile_start.shape[0]
+    nbytes = Q * 5 * 4 + n_ids * 4 + uniq * 13 * 4 + (2 * T + 2 * (T + 2)) * 4
+    kernel_us = sum(r["device_us"] for r in prof["top"]
+                    if "integrate_kernel" in r["op"])
+    sweep = sweep_profile(gauss, nvs, tp, cfg, pair_cap, mpt)
+    return dict(P=int(gauss[0].shape[0]), seed_points=Q,
+                inside=int(q.inside.sum()),
+                occupied_tiles=int(occupied.numel()),
+                caps={"pair_cap": pair_cap, "max_per_tile": mpt},
+                pairs=pairs, passing_pairs=work["passing"],
+                failing_share=1 - work["passing"] / max(pairs, 1),
+                ms=ms, kernel_device_ms=kernel_us / 1e3,
+                plain_ms=plain_ms, alone_ms={
+                    "preprocess": preprocess_ms, "binning": binning_ms,
+                    "query_rays": query_rays_ms},
+                wrapper_profile=prof, sweep=sweep, **bound(ops, nbytes),
+                **agree, running_min=running_min)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1099,9 +1519,14 @@ def main(argv=None) -> int:
 
     build(card)
     flagship_bwd, masks, given = kernels_vs_plain(dev, args.seed)
+    integrate_small_err = integrate_vs_plain(dev, args.seed)
     (serve_k1, serve_decide), fwd_shapes, (n_nvs, n_render) = serving_path(
         args, dev, card)
     masks += [v["mask"] for v in fwd_shapes.values()]
+    mesh = mesh_path(args, dev, card)
+    field = integrate_timing(mesh, args, dev, card)
+    emit("integrate_timing", card=card, view="frontal NVS camera", **field)
+    mesh_k1 = mesh["launches"]["raster_fwd"]
     (train_k1, train_k2, train_decide), bwd_shapes, B, train_masks, \
         train_given = training_path(args, dev, card)
     masks += train_masks
@@ -1117,8 +1542,9 @@ def main(argv=None) -> int:
         "sources": [csrc + f for f in ("gof_decide.cu", "raster_fwd.cu",
                                        "gof_pair.cuh")],
         "replaces": "f3d_gaus_tpu/ops/pallas_raster.py:230",
-        "launches": serve_k1 + train_k1,
-        "launches_by_path": {"serving": serve_k1, "training": train_k1},
+        "launches": serve_k1 + train_k1 + mesh_k1,
+        "launches_by_path": {"serving": serve_k1, "training": train_k1,
+                             "mesh": mesh_k1},
         "max_abs_err": nvs["anchor_err"],
         "ms": nvs["ms"], "plain_ms": nvs["plain_ms"],
         "bound_ms": nvs["bound_ms"], "bound_by": nvs["bound_by"],
@@ -1143,7 +1569,7 @@ def main(argv=None) -> int:
                                        "gof_pair.cuh")],
         "replaces": "f3d_gaus_tpu/ops/pallas_raster.py:401",
         "launches": train_k2,
-        "launches_by_path": {"serving": 0, "training": train_k2},
+        "launches_by_path": {"serving": 0, "training": train_k2, "mesh": 0},
         "max_abs_err": cano["max_abs_err"],
         "ms": cano["ms"], "plain_ms": cano["plain_ms"],
         "bound_ms": cano["bound_ms"], "bound_by": cano["bound_by"],
@@ -1170,9 +1596,9 @@ def main(argv=None) -> int:
         "name": "gof_decide", "route": "cuda",
         "source": csrc + "gof_decide.cu",
         "replaces": "f3d_gaus_tpu/ops/pallas_raster.py:262",
-        "launches": serve_decide + train_decide,
+        "launches": serve_decide + train_decide + mesh_k1,
         "launches_by_path": {"serving": serve_decide,
-                             "training": train_decide},
+                             "training": train_decide, "mesh": mesh_k1},
         "max_abs_err": int(any(m["bits_differ"] for m in masks)),
         "bits_differ": sum(m["bits_differ"] for m in masks),
         "ms": nvs["decide_ms"], "plain_ms": nvs["decide_plain_ms"],
@@ -1191,6 +1617,33 @@ def main(argv=None) -> int:
                                             "decide_plain_ms",
                                             "decide_bound_ms") if f in v}}
                    for k, v in {**fwd_shapes, **bwd_shapes}.items()},
+    }, {
+        "name": "integrate", "route": "cuda",
+        "source": csrc + "integrate.cu",
+        "replaces": "f3d_gaus_tpu/ops/integrate.py:82",
+        "launches": mesh["launches"]["integrate"],
+        "launches_by_path": {"serving": 0, "training": 0,
+                             "mesh": mesh["launches"]["integrate"]},
+        "max_abs_err": max(field["max_abs_err"],
+                           field["running_min"]["max_abs_err"]),
+        "ms": field["ms"], "plain_ms": field["plain_ms"],
+        "bound_ms": field["bound_ms"], "bound_by": field["bound_by"],
+        "library_ms": None,
+        "at": "replaces XLA code, not a Pallas kernel: the JAX package's "
+              "_point_alpha_product (:82) and the window walk of "
+              "_integrate_chunk (:104); the mesh path's frontal NVS view, "
+              f"P={field['P']}, {field['seed_points']} seed points, "
+              f"{mesh['n_views']} x (1 + {MESH_STEPS}) launches per mesh; "
+              "ms includes the wrapper's sort of the points by tile "
+              "(kernel_device_ms: the kernel alone); max_abs_err at that "
+              "view against the plain version, one view's field and the "
+              "running minimum into a seeded field (on the 32^2 cases "
+              f"{integrate_small_err:.3g}, tolerance {INTEGRATE_TOL}); "
+              f"bound_ms charges the pairs whose alpha fails 1/255 "
+              f"{OPS_PER_FAILING_INTEGRATE} operations, the rest "
+              f"{OPS_PER_PAIR_INTEGRATE}",
+        "kernel_device_ms": field["kernel_device_ms"],
+        "pairs": field["pairs"], "failing_share": field["failing_share"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,18 +1,22 @@
-"""Command-line pipeline: single image -> 3D Gaussians -> NVS frames
+"""Command-line pipeline: single image -> 3D Gaussians -> NVS frames + mesh
 (counterpart of f3d_gaus_tpu/cli.py):
 
     python -m f3d_gaus_torch.cli --folder images/1 --output_path out \
-        --skip_mesh [--load_model ckpt.pt] [--num_nvs_views N] [--device cuda]
+        [--load_model ckpt.pt] [--skip_mesh] [--aug_mesh] \
+        [--mesh_method delaunay|grid] [--num_nvs_views N] [--device cuda]
 
 Outputs per batch element: the NVS orbit as a video (mp4 when an ffmpeg
-backend exists, else GIF) plus a depth video, and the predicted Gaussian
-set as a 3DGS PLY.  Mesh extraction is not ported yet, so --skip_mesh is
-required.
+backend exists, else GIF) plus a depth video, the predicted Gaussian set
+as a 3DGS PLY (the cycle-aggregated set under --aug_mesh) and, unless
+--skip_mesh, the binary-searched opacity-0.5 mesh
+(mesh_binary_search.ply) with its stage seconds and counts
+(mesh_stats.json).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 
@@ -20,13 +24,17 @@ import numpy as np
 
 
 def _save_video(frames, path_base):
-    """frames: list of (H, W, 3) uint8.  Writes mp4 if possible, else GIF."""
-    import imageio
+    """frames: list of (H, W, 3) uint8.  Writes mp4 where imageio has an
+    ffmpeg backend, else a GIF with PIL."""
     try:
+        import imageio
         imageio.mimwrite(path_base + ".mp4", frames, fps=30)
         return path_base + ".mp4"
     except (ValueError, RuntimeError, ImportError, OSError):
-        imageio.mimwrite(path_base + ".gif", frames, fps=30, loop=0)
+        from PIL import Image
+        imgs = [Image.fromarray(f) for f in frames]
+        imgs[0].save(path_base + ".gif", save_all=True,
+                     append_images=imgs[1:], duration=1000 // 30, loop=0)
         return path_base + ".gif"
 
 
@@ -54,8 +62,11 @@ def main(argv=None):
                    help="reference torch .pt predictor checkpoint")
     p.add_argument("--folder", required=True, help="RGB+_depth.png image dir")
     p.add_argument("--output_path", default="log_visuals")
-    p.add_argument("--skip_mesh", action="store_true",
-                   help="required: mesh extraction is not ported yet")
+    p.add_argument("--skip_mesh", action="store_true")
+    p.add_argument("--aug_mesh", action="store_true",
+                   help="mesh from the cycle-aggregated (9x) gaussian set")
+    p.add_argument("--mesh_method", default="delaunay",
+                   choices=["delaunay", "grid"])
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--max_batches", type=int, default=0)
     p.add_argument("--num_nvs_views", type=int, default=0,
@@ -63,14 +74,11 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if not args.skip_mesh:
-        print("mesh extraction is not yet ported to f3d_gaus_torch; "
-              "pass --skip_mesh", file=sys.stderr)
-        return 2
 
     import torch
     from .core.device import resolve_device
     from .io import ply as plyio
+    from .mesh import extract as ME
     from .models import predictor as P
     from .pipeline import config as C
     from .pipeline import cycle, dataset as D
@@ -122,11 +130,41 @@ def main(argv=None):
             _save_video(dframes, os.path.join(out_dir, "nvs_depth"))
             print(f"[{tag}] wrote {vid} ({len(frames)} views)")
 
-            g = {k: v[b].cpu().numpy() for k, v in res.first.items()}
+            src = res.merged if args.aug_mesh else res.first
+            g = {k: v[b].cpu().numpy() for k, v in src.items()}
             plyio.write_gaussian_ply(
                 os.path.join(out_dir, "gaussians.ply"),
                 g["xyz"], g["features_dc"], g["features_rest"],
                 g["opacity"], g["scaling"], g["rotation"])
+
+            if not args.skip_mesh:
+                nvs_cams = cycle.nvs_cameras(cfg, ds.inverse_first_camera)
+                gauss = {"xyz": src["xyz"][b], "scaling": src["scaling"][b],
+                         "rotation": src["rotation"][b],
+                         "opacity": src["opacity"][b],
+                         "shs": torch.cat([src["features_dc"][b],
+                                           src["features_rest"][b]], 1)}
+                camd = {"world_view": nvs_cams.world_view,
+                        "full_proj": nvs_cams.full_proj,
+                        "cam_centers": nvs_cams.cam_centers}
+                timings, counts = {}, {}
+                mesh = ME.extract_mesh(
+                    gauss, camd, width=cfg.resolution, height=cfg.resolution,
+                    tan_fov=cfg.tan_fov, fov_deg=cfg.fov_deg,
+                    method=args.mesh_method, pair_cap=cfg.pair_cap,
+                    max_per_tile=cfg.max_per_tile, chunk=cfg.chunk,
+                    device=device, timings=timings, counts=counts)
+                plyio.write_mesh_ply(
+                    os.path.join(out_dir, "mesh_binary_search.ply"),
+                    mesh.vertices, mesh.faces, mesh.vertex_colors)
+                with open(os.path.join(out_dir, "mesh_stats.json"), "w") as f:
+                    json.dump({"method": args.mesh_method,
+                               "attempts": res.attempts,
+                               "pair_cap": cfg.pair_cap,
+                               "max_per_tile": cfg.max_per_tile,
+                               "counts": counts, "stage_s": timings}, f)
+                print(f"[{tag}] mesh: {len(mesh.vertices)} verts, "
+                      f"{len(mesh.faces)} faces")
     print("done")
     return 0
 

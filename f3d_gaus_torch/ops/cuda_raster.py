@@ -1,6 +1,8 @@
-"""The compositing kernels on the card: loader and launch wrappers of
-csrc/gof_decide.cu, csrc/raster_fwd.cu and csrc/raster_bwd.cu, which all
-include csrc/gof_pair.cuh (counterpart of f3d_gaus_tpu/ops/pallas_raster.py).
+"""The kernels on the card: loader and launch wrappers of the compositing
+kernels csrc/gof_decide.cu, csrc/raster_fwd.cu and csrc/raster_bwd.cu,
+which all include csrc/gof_pair.cuh (counterpart of
+f3d_gaus_tpu/ops/pallas_raster.py), and of the opacity-field query
+csrc/integrate.cu (counterpart of f3d_gaus_tpu/ops/integrate.py).
 
 Each kernel source is compiled with nvcc for sm_90a into a shared library
 with a plain C interface at the first CUDA call (all at once, one nvcc
@@ -14,8 +16,10 @@ window.  `composite_fwd` and `composite_bwd` launch it and then the
 compositing or backward pass over the set bits; all three accept only CUDA
 tensors.  rasterize.composite picks between them and the plain PyTorch
 versions (rasterize._contrib_mask_impl, _composite_fwd_impl,
-_composite_bwd_impl).  `launches_decide`, `launches` and `launches_bwd`
-count the launches of the three kernels.
+_composite_bwd_impl).  `integrate` launches the field query; ops/
+integrate.py picks between it and its plain version (_alpha_impl).
+`launches_decide`, `launches`, `launches_bwd` and `launches_integrate`
+count the launches of the four kernels.
 """
 from __future__ import annotations
 
@@ -32,9 +36,9 @@ from . import rasterize as R
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {"decide": CSRC / "gof_decide.cu", "fwd": CSRC / "raster_fwd.cu",
-           "bwd": CSRC / "raster_bwd.cu"}
+           "bwd": CSRC / "raster_bwd.cu", "integrate": CSRC / "integrate.cu"}
 ENTRY = {"decide": "f3d_gof_decide", "fwd": "f3d_raster_fwd",
-         "bwd": "f3d_raster_bwd"}
+         "bwd": "f3d_raster_bwd", "integrate": "f3d_integrate"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -42,6 +46,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 launches_decide = 0       # decision-pass launches since the last reset
 launches = 0              # compositing-pass launches since the last reset
 launches_bwd = 0          # backward-pass launches since the last reset
+launches_integrate = 0    # field-query launches since the last reset
 build_log = ""            # nvcc/ptxas output of the builds this process made
 _libs = None
 
@@ -82,12 +87,15 @@ _ARGTYPES = {
             _P, _P, _P, _P, _P, _P, _P, _P],
     "bwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _P, _P,
             _P, _P, _P, _P, _P, _P, _P],
+    "integrate": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                  _P, _I, _I, _P],
 }
 
 
 def load(rebuild: bool = False) -> dict:
     """Build (once per build_key, or anew with `rebuild`) and load the
-    kernel libraries: {'decide': CDLL, 'fwd': CDLL, 'bwd': CDLL}.  The nvcc
+    kernel libraries: {'decide': CDLL, 'fwd': CDLL, 'bwd': CDLL,
+    'integrate': CDLL}.  The nvcc
     runs go in parallel; any failure raises with its log."""
     global _libs, build_log
     if _libs is not None and not rebuild:
@@ -272,3 +280,69 @@ def composite_bwd(allf, extra, point_list, tile_start, tile_count, bg,
         raise RuntimeError(f"raster_bwd kernel launch failed: CUDA error {err}")
     launches_bwd += 1
     return d_feat, d_stats
+
+
+INTEGRATE_POINTS_PER_CTA = 128     # integrate.cu:kThreads
+
+
+def integrate(v2g_mb, opa, point_list, tile_start, tile_count, u, v, depth,
+              tile, inside, max_per_tile: int, out=None):
+    """The field query of one view in the kernel: per query point, 1 - the
+    product of (1 - alpha) over its tile's window (integrate.py:
+    _alpha_impl's contract), 0 for points not `inside`.  v2g_mb (P, 12),
+    opa (P,), the slab with its tile_start / tile_count (T,), and the
+    points' u, v, depth (Q,) f32, tile (Q,) int32 and inside (Q,) bool.
+    Returns a new (Q,) tensor, or with `out` ((Q,) f32) writes
+    min(out, alpha) into it and returns it.
+
+    The points are sorted by tile here (torch.sort); each tile's points
+    are cut into CTAs of INTEGRATE_POINTS_PER_CTA, the points outside
+    forming one last segment with an empty window."""
+    global launches_integrate
+    P = v2g_mb.shape[0]
+    _check("v2g_mb", v2g_mb, torch.float32, (P, 12))
+    _check("opa", opa, torch.float32, (P,))
+    _check("point_list", point_list, torch.int32)
+    if point_list.dim() != 1:
+        raise ValueError(
+            f"point_list must be 1-D, got {tuple(point_list.shape)}")
+    T = tile_start.shape[0]
+    _check("tile_start", tile_start, torch.int32, (T,))
+    _check("tile_count", tile_count, torch.int32, (T,))
+    Q = u.shape[0]
+    for name, t in (("u", u), ("v", v), ("depth", depth)):
+        _check(name, t, torch.float32, (Q,))
+    _check("tile", tile, torch.int32, (Q,))
+    _check("inside", inside, torch.bool, (Q,))
+    if out is not None:
+        _check("out", out, torch.float32, (Q,))
+    dev = v2g_mb.device
+    for name, t in (("opa", opa), ("point_list", point_list),
+                    ("tile_start", tile_start), ("tile_count", tile_count),
+                    ("u", u), ("v", v), ("depth", depth), ("tile", tile),
+                    ("inside", inside), ("out", out)):
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, v2g_mb on {dev}")
+
+    K = INTEGRATE_POINTS_PER_CTA
+    key, perm = torch.sort(torch.where(inside, tile, T))
+    seg_start = torch.searchsorted(
+        key, torch.arange(T + 2, dtype=key.dtype, device=dev)).to(torch.int32)
+    blocks = (seg_start[1:] - seg_start[:-1] + K - 1) // K
+    item_start = torch.zeros(T + 2, dtype=torch.int32, device=dev)
+    item_start[1:] = torch.cumsum(blocks, 0)
+    perm = perm.to(torch.int32)
+    running_min = out is not None
+    if out is None:
+        out = torch.empty(Q, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = load()["integrate"].f3d_integrate(
+        _device_index(dev), v2g_mb.data_ptr(), opa.data_ptr(),
+        point_list.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
+        T, P, max_per_tile, perm.data_ptr(), seg_start.data_ptr(),
+        item_start.data_ptr(), u.data_ptr(), v.data_ptr(), depth.data_ptr(),
+        out.data_ptr(), int(running_min), Q // K + T + 1, stream)
+    if err != 0:
+        raise RuntimeError(f"integrate kernel launch failed: CUDA error {err}")
+    launches_integrate += 1
+    return out

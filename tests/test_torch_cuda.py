@@ -1,7 +1,8 @@
-"""The CUDA compositing kernels (the decision pass csrc/gof_decide.cu,
-csrc/raster_fwd.cu, csrc/raster_bwd.cu) against their plain PyTorch
-versions on the card, and one feed-forward training step there.  Needs a
-CUDA device and nvcc; skips elsewhere.
+"""The CUDA kernels (the decision pass csrc/gof_decide.cu,
+csrc/raster_fwd.cu, csrc/raster_bwd.cu, the field query
+csrc/integrate.cu) against their plain PyTorch versions on the card, one
+feed-forward training step and one mesh extraction there.  Needs a CUDA
+device and nvcc; skips elsewhere.
 Imports no JAX, so on the card's machine it runs without the JAX
 package's conftest:
 
@@ -11,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from f3d_gaus_torch.mesh import extract as TE
 from f3d_gaus_torch.ops import cuda_raster
+from f3d_gaus_torch.ops import integrate as TI
 from f3d_gaus_torch.ops import rasterize as TR
 from f3d_gaus_torch.pipeline import config as TCfg
 from f3d_gaus_torch.pipeline import dataset as TD
@@ -20,6 +23,8 @@ import torch_cases  # tests/ is on sys.path under pytest (rootdir-less dir)
 
 pytestmark = pytest.mark.cuda
 CASE_NAMES = [c[0] for c in torch_cases.small_cases()]
+INTEGRATE_CASES = {c[0]: c for c in torch_cases.integrate_cases()}
+INTEGRATE_TOL = 2e-5       # tests/test_integrate.py:83
 
 
 @pytest.fixture
@@ -184,3 +189,64 @@ def test_train_step_on_the_card(cuda):
     assert cuda_raster.launches_decide - d0 == 12
     for p in state.model.parameters():
         assert torch.isfinite(p.grad).all()
+
+
+@pytest.mark.parametrize("case", list(INTEGRATE_CASES))
+def test_integrate_kernel_matches_plain(cuda, case):
+    """The field of one view and the running minimum over a 3-view orbit,
+    the kernel against the plain version, within 2e-5."""
+    _, cam, cloud, pts, kw = INTEGRATE_CASES[case]
+    tc = [torch.from_numpy(a).to(cuda) for a in cloud]
+    tp = torch.from_numpy(pts).to(cuda)
+    before = cuda_raster.launches_integrate
+    k = TI.integrate_points(*tc, cam, tp, **kw)["alpha_integrated"]
+    torch.cuda.synchronize()
+    assert cuda_raster.launches_integrate == before + 1
+    p = TI.integrate_points(*tc, cam, tp, backend="torch",
+                            **kw)["alpha_integrated"]
+    torch.testing.assert_close(k, p, atol=INTEGRATE_TOL, rtol=0)
+    orbit = torch_cases.orbit_views(3)
+    views = (orbit.world_view, orbit.full_proj, orbit.cam_centers)
+    size = dict(width=32, height=32, tan_fovx=torch_cases.TAN,
+                tan_fovy=torch_cases.TAN)
+    km = TI.integrate_min_alpha(*tc, *views, tp, **size, **kw)
+    torch.cuda.synchronize()
+    assert cuda_raster.launches_integrate == before + 4
+    pm = TI.integrate_min_alpha(*tc, *views, tp, backend="torch", **size, **kw)
+    torch.testing.assert_close(km, pm, atol=INTEGRATE_TOL, rtol=0)
+
+
+def test_extract_mesh_kernel_matches_plain(cuda):
+    """tests/test_mesh.py's blob on a 24^3 lattice with 4 bisection steps:
+    the same faces through the kernel as through the plain version, the
+    vertices within 1e-4."""
+    gauss, cams, kw = torch_cases.mesh_case("blob_grid")
+    g = {k: torch.from_numpy(v).to(cuda) for k, v in gauss.items()}
+    before = cuda_raster.launches_integrate
+    k = TE.extract_mesh(g, cams, **kw)
+    assert cuda_raster.launches_integrate == before + 8 * (1 + 4)
+    p = TE.extract_mesh(g, cams, backend="torch", **kw)
+    assert len(k.faces) > 50
+    np.testing.assert_array_equal(k.faces, p.faces)
+    np.testing.assert_allclose(k.vertices, p.vertices, atol=1e-4, rtol=0)
+
+
+def test_integrate_wrapper_rejects_bad_inputs(cuda):
+    _, cam, cloud, pts, kw = INTEGRATE_CASES["cloud48_mpt64"]
+    tc = [torch.from_numpy(a).to(cuda) for a in cloud]
+    s = TI._statics(cam, 64, 16, 32)
+    pre, bng, _ = TI._prepare_view(tc, cam, 1, 0.0, 1 << 12, 64)
+    q = TI.query_rays(torch.from_numpy(pts).to(cuda), cam, s)
+    args = [pre.v2g_mb, pre.opa_coef, bng.point_list, bng.tile_start,
+            bng.tile_count, q.u, q.v, q.depth, q.tile, q.inside]
+    bad = {0: pre.v2g_mb[:, :9].contiguous(), 1: pre.opa_coef.double(),
+           2: bng.point_list.long(), 3: bng.tile_start[:-1],
+           5: q.u.cpu(), 7: q.depth[:-1], 8: q.tile.long(), 9: q.inside.int()}
+    for i, t in bad.items():
+        with pytest.raises(ValueError):
+            cuda_raster.integrate(*args[:i], t, *args[i + 1:], 64)
+    with pytest.raises(ValueError):
+        cuda_raster.integrate(*args, 64, out=torch.zeros(3, device=cuda))
+    out = torch.ones_like(q.u)
+    got = cuda_raster.integrate(*args, 64, out=out)
+    assert got is out and bool((out <= 1).all())

@@ -7,7 +7,10 @@ at the small cases of tests/torch_cases.py:
     below 1/255 by far, never one that passes the decision, and keeps an
     opacity of exactly 1/255 where G is 1;
   * the walks it counts nest (window >= walked >= bwd >= contributors) and
-    its contributors are the mask's bits up to each pixel's last_pos."""
+    its contributors are the mask's bits up to each pixel's last_pos;
+  * field_pair_work, the field query's count, walks each inside point's
+    whole window and counts as passing the pairs whose alpha reaches 1/255,
+    on the field-query cases."""
 import os
 import sys
 
@@ -110,3 +113,38 @@ def test_pair_work_walks_nest(case):
     assert S.decide_ops(w, "window") == (
         w["window_rejected"] * S.OPS_PER_REJECTED
         + (w["window"] - w["window_rejected"]) * S.OPS_PER_DECIDED)
+
+
+@pytest.mark.parametrize("case", [c[0] for c in torch_cases.integrate_cases()])
+def test_field_pair_work_counts_each_window(case):
+    """Point by point, its whole window at once: the same pairs, and as
+    passing those whose alpha reaches 1/255; the field is 1 - the product
+    of (1 - alpha) over them."""
+    from f3d_gaus_torch.ops import integrate as TI
+
+    _, cam, cloud, pts, kw = next(c for c in torch_cases.integrate_cases()
+                                  if c[0] == case)
+    s = TI._statics(cam, kw.get("max_per_tile", 1024), kw.get("chunk", 128),
+                    kw.get("point_chunk", 1 << 14))
+    pre, bng, _ = TI._prepare_view(tuple(map(torch.from_numpy, cloud)), cam,
+                                   1, 0.0, kw.get("pair_cap", 1 << 18),
+                                   s.max_per_tile)
+    q = TI.query_rays(torch.from_numpy(pts), cam, s)
+    slab = (pre.v2g_mb, pre.opa_coef, bng.point_list, bng.tile_start,
+            bng.tile_count)
+    w = S.field_pair_work(slab, q, s)
+    rows = torch.cat([pre.v2g_mb, pre.opa_coef[:, None]], 1)
+    field = TI._alpha_impl(*slab, q, s)
+    pairs = passing = 0
+    for i in torch.nonzero(q.inside)[:, 0].tolist():
+        t = int(q.tile[i])
+        n = min(int(bng.tile_count[t]), s.max_per_tile)
+        ids = bng.point_list[int(bng.tile_start[t]):][:n].long()
+        alpha = TI._pair_alpha(rows[ids][None], q.u[i:i + 1], q.v[i:i + 1],
+                               q.depth[i:i + 1])
+        pairs += n
+        passing += int((alpha > 0).sum())
+        torch.testing.assert_close(1 - torch.prod(1 - alpha), field[i],
+                                   atol=1e-6, rtol=0)
+    assert w == {"pairs": pairs, "passing": passing}
+    assert 0 < passing < pairs

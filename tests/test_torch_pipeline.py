@@ -131,9 +131,14 @@ def test_run_nvs_replanned_doubles_caps():
 
 
 def test_cli_smoke_cpu(tmp_path, monkeypatch):
+    """The CLI on the CPU at 32^2: NVS videos, the Gaussian PLY and, without
+    --skip_mesh, the mesh: empty at the random init, and with faces from
+    the cycle-aggregated set of raised-opacity weights (--aug_mesh)."""
     from PIL import Image
+    import json
     import yaml
     from f3d_gaus_torch import cli
+    from f3d_gaus_torch.io import ply
 
     rng = np.random.default_rng(2)
     demo = tmp_path / "imgs"
@@ -150,12 +155,50 @@ def test_cli_smoke_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(TCfg, "from_yaml", lambda p: dataclasses.replace(
         orig(p), pair_cap=1 << 12, max_per_tile=256, chunk=32,
         num_aggregation_views=1, num_nvs_views=1))
-    out = tmp_path / "out"
-    args = ["--folder", str(demo), "--output_path", str(out),
-            "--config", str(cfg_path), "--batch_size", "1", "--max_batches",
-            "1", "--device", "cpu"]
-    assert cli.main(args) != 0                    # mesh is not ported yet
-    assert cli.main(args + ["--skip_mesh"]) == 0
-    files = os.listdir(out / "00_00")
-    assert any(f.startswith("nvs.") for f in files)
-    assert "gaussians.ply" in files
+    ckpt = tmp_path / "raised.pt"
+    torch_cases.raised_opacity_checkpoint(ckpt, TCfg.from_yaml(str(cfg_path)))
+
+    meshes = {}
+    for name, extra in (("skip", ["--skip_mesh"]), ("init", []),
+                        ("aug", ["--aug_mesh", "--load_model", str(ckpt)])):
+        out = tmp_path / name
+        args = ["--folder", str(demo), "--output_path", str(out),
+                "--config", str(cfg_path), "--batch_size", "1",
+                "--max_batches", "1", "--device", "cpu"]
+        assert cli.main(args + extra) == 0
+        files = os.listdir(out / "00_00")
+        assert any(f.startswith("nvs.") for f in files)
+        assert "gaussians.ply" in files
+        assert ("mesh_binary_search.ply" in files) == (name != "skip")
+        if name != "skip":
+            meshes[name] = ply.read_mesh_ply(out / "00_00" /
+                                             "mesh_binary_search.ply")
+            stats = json.loads((out / "00_00" / "mesh_stats.json").read_text())
+            assert stats["counts"]["faces"] == len(meshes[name][1])
+    # the Gaussian PLY holds the cycle-aggregated set under --aug_mesh
+    P = 32 * 32
+    assert len(ply.read_gaussian_ply(tmp_path / "init" / "00_00" /
+                                     "gaussians.ply")["xyz"]) == P
+    assert len(ply.read_gaussian_ply(tmp_path / "aug" / "00_00" /
+                                     "gaussians.ply")["xyz"]) == 2 * P
+    v, f, _ = meshes["aug"]
+    assert len(f) > 0 and np.isfinite(v).all() and f.max() < len(v)
+    assert f.min() >= 0
+    v0, f0, _ = meshes["init"]
+    assert len(f0) == 0 or f0.max() < len(v0)
+
+
+def test_save_video_without_imageio(tmp_path, monkeypatch):
+    """Where imageio is not installed (or has no ffmpeg backend) the CLI
+    writes its videos as GIFs with PIL, frame for frame."""
+    import sys
+    from PIL import Image
+    from f3d_gaus_torch import cli
+    monkeypatch.setitem(sys.modules, "imageio", None)
+    frames = [np.full((8, 12, 3), 40 * i, np.uint8) for i in range(3)]
+    path = cli._save_video(frames, str(tmp_path / "v"))
+    assert path.endswith(".gif")
+    with Image.open(path) as im:
+        assert im.n_frames == 3 and im.size == (12, 8)
+        im.seek(2)
+        assert np.asarray(im.convert("RGB"))[0, 0, 0] == 80

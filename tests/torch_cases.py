@@ -40,6 +40,20 @@ def orbit_camera(width=32, height=32, yaw=0.12, pitch=-0.07):
     return cs.camera(0, width, height, TAN, TAN)
 
 
+def small_camera():
+    """tests/conftest.py:small_camera."""
+    return orbit_camera(32, 32, yaw=0.15, pitch=-0.05)
+
+
+def orbit_views(n):
+    """An n-view orbit rebased to the canonical first camera (the view
+    sweep of the mesh tests)."""
+    _, inv_first = cameras.canonical_camera_set(FOV, 7.667, 7.667, 6.667,
+                                                8.667)
+    return cameras.orbit_camera_set(n, FOV, 7.667, 7.667, 6.667, 8.667,
+                                    rebase=inv_first)
+
+
 def setup(rng, n=96, width=32, height=32):
     """tests/test_rasterize_parity.py:_setup: (camera, cloud)."""
     cam = orbit_camera(width, height)
@@ -119,6 +133,83 @@ def small_cases(seed=0):
         ("dense600_mpt768", cam, dense, bg,
          dict(pair_cap=1 << 14, max_per_tile=768, chunk=64)),
     ]
+
+
+def integrate_cases(seed=0):
+    """The field-query cases at 32^2, from tests/test_integrate.py:
+    (name, camera, cloud, query points, integrate kwargs).  The 48-Gaussian
+    cloud with its centres, jittered copies and outliers is that file's
+    first test on the same seed; the 16-Gaussian cloud adds a point far
+    outside the frustum to its centres; the 600-Gaussian cloud puts more
+    pairs in a tile than max_per_tile, so windows are cut."""
+    rng = np.random.default_rng(seed)
+    cloud48 = make_gaussian_cloud(rng, 48)
+    m = cloud48[0]
+    pts48 = np.concatenate([
+        m, m + rng.normal(scale=0.05, size=m.shape).astype(np.float32),
+        rng.normal(size=(32, 3)).astype(np.float32) * 2.0 + [0, 0, 7.667],
+    ]).astype(np.float32)
+    cloud16 = make_gaussian_cloud(rng, 16)
+    pts16 = np.concatenate([np.array([[100.0, 100.0, 7.7], [0.0, 0.0, 7.667]],
+                                     np.float32), cloud16[0]])
+    dense = make_gaussian_cloud(rng, 600, spread=0.35,
+                                scale_range=(0.02, 0.12))
+    pts600 = (dense[0] + rng.normal(scale=0.05, size=dense[0].shape)
+              ).astype(np.float32)
+    cam = small_camera()
+    return [
+        ("cloud48_mpt64", cam, cloud48, pts48,
+         dict(pair_cap=1 << 12, max_per_tile=64, chunk=16, point_chunk=32)),
+        ("cloud16_outside", cam, cloud16, pts16, dict(point_chunk=8)),
+        ("dense600_mpt128", cam, dense, pts600,
+         dict(pair_cap=1 << 14, max_per_tile=128, chunk=32, point_chunk=256)),
+    ]
+
+
+def mesh_case(name):
+    """The clouds of tests/test_mesh.py:TestExtract on the rng fixture's
+    seed: (gauss, cams, extract_mesh kwargs).  `blob_grid`, 96 opaque
+    Gaussians on a 24^3 lattice seen from 8 views with 4 bisection steps;
+    `cloud48_delaunay`, 48 on Delaunay seed points from 4 views, 2
+    steps."""
+    rng = np.random.default_rng(0)
+    if name == "blob_grid":
+        cloud = make_gaussian_cloud(rng, 96, spread=0.12,
+                                    scale_range=(0.06, 0.10))
+        orbit = orbit_views(8)
+        kw = dict(method="grid", grid_res=24, binary_steps=4)
+    else:
+        cloud = make_gaussian_cloud(rng, 48, spread=0.1,
+                                    scale_range=(0.06, 0.10))
+        orbit = orbit_views(4)
+        kw = dict(method="delaunay", binary_steps=2)
+    means, scales, quats, opac, shs = cloud
+    opac[:] = 0.95
+    gauss = {"xyz": means, "scaling": scales, "rotation": quats,
+             "opacity": opac, "shs": shs}
+    cams = {"world_view": orbit.world_view, "full_proj": orbit.full_proj,
+            "cam_centers": orbit.cam_centers}
+    kw.update(width=32, height=32, tan_fov=TAN, fov_deg=FOV,
+              pair_cap=1 << 12, max_per_tile=128, chunk=32,
+              point_chunk=1 << 10)
+    return gauss, cams, kw
+
+
+def raised_opacity_checkpoint(path, cfg, seed=0):
+    """The seeded EDM-init predictor of `cfg` with the opacity logit's bias
+    at 1.0 (opacity about 0.73, as tests/test_torch_train_grad.py sets it),
+    saved as a reference-format .pt for --load_model.  At the init's
+    opacity of about 0.05 no point of the field reaches alpha 0.5 and the
+    mesh has no faces; at 0.73 each Gaussian's centre is inside the
+    surface in every view."""
+    import torch
+    from f3d_gaus_torch.models import predictor as P
+    model = P.GaussianPredictor(cfg.predictor_config(),
+                                torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        model.out.bias[3] = 1.0
+    torch.save({"gaussian_predictor.network_with_offset." + k: v
+                for k, v in model.state_dict().items()}, path)
 
 
 def exercised(name, tile_count, aux, max_per_tile):
