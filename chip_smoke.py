@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (f3d_gaus_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--num_nvs_views 128]
+                          [--scene_iterations 2000]
 
 Phases, one JSON line each:
   1. environment: torch, CUDA, nvcc, the card; builds the decision pass
@@ -85,7 +86,26 @@ Phases, one JSON line each:
      image 1's two renders: >= 99.7 % of rows within 5e-3 x max |g|, each
      row outside holding a pair that can flip; the decision pass's mask on
      all four renders, each differing bit a pair that can flip; and
-     compare_given_mask on all four.
+     compare_given_mask on all four;
+  9. scene_path: full_eval.full_eval on a synthetic scene of
+     NeRF-synthetic's shape (scene_write: 100 hemisphere views at 800^2 as
+     Blender transforms_train.json, each parsed camera's world_view within
+     1e-5 of the look-at frame it was written from; ~200,000 opaque
+     Gaussians on textured surfaces at SH degree 3, rendered through the
+     parsed cameras with K1 into RGBA PNGs), trained on 87 views and tested
+     on 13 (llffhold 8) at PerSceneConfig() with --scene_iterations
+     (default 2,000 of the reference's 30,000) and caps planned over the
+     100,000-point init cloud with headroom; requires no overflowed step,
+     finite parameters, a falling loss (first against last 100 steps), an
+     alive count that a densification changed, a test PSNR above the init
+     scene's on the same views, and exactly one K1 and one K2 launch per
+     step (two decision passes) and one K1 per test render; reports each
+     stage's seconds, the step split by CUDA events, KNN at 100,000
+     points, the alive count per densification and the caps the fitted
+     scene needs; then K1, K2 and the decision pass at the fitted scene
+     and the first training camera against their plain versions (the
+     anchor; K2 on >= 99.7 % of rows with d_stats, each row outside
+     witnessed) and timed beside their bounds.
 Then the `kernels` line, the card's name and power limit, and last the
 result line.  Any failure raises, so the script exits non-zero and prints
 no result; it also refuses to run without a CUDA device.
@@ -126,6 +146,9 @@ GRAD_TOL = 5e-3
 FLAGSHIP_ROWS = 0.999
 TRAIN_ROWS = 0.997
 FLIP_KINDS = ("alpha", "t", "num")   # the decisions flip_margins witnesses
+# and the pairs whose alpha or normal f32 evaluation is uncertain by at
+# least GRAD_TOL of its value (pair_margins' fourth row)
+MARGIN_KINDS = FLIP_KINDS + ("cond",)
 # bench.py's anchor, for renders in which f32 rounding moves single
 # pixels: the largest error, and the share of values above ANCHOR_ABOVE
 ANCHOR_MAX_ERR = 2e-2
@@ -321,10 +344,11 @@ def work_fields(work):
         for k in ("window", "walked", "bwd") if k in work}}
 
 
-def time_kernel(inp, iters, plain_iters):
+def time_kernel(inp, iters, plain_iters, held=True):
     """Kernel and plain-version times on one prepared input, whole and
-    each pass alone, the bounds, the kernel-vs-plain errors and the
-    decision pass's mask against the plain mask."""
+    each pass alone, the bounds, the kernel-vs-plain errors (held to the
+    anchor by `compare` unless `held` is False, where versus_f64 holds
+    them) and the decision pass's mask against the plain mask."""
     import torch
     from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.ops import rasterize as R
@@ -370,7 +394,7 @@ def time_kernel(inp, iters, plain_iters):
                 decide_ms=decide_ms, composite_ms=composite_ms,
                 plain_ms=plain_ms, decide_plain_ms=decide_plain_ms,
                 **{k + f: v for k, b in bounds.items() for f, v in b.items()},
-                **compare(inp, exact=False), mask=mask_check)
+                **(compare(inp, exact=False) if held else {}), mask=mask_check)
 
 
 def bound(ops, nbytes):
@@ -400,28 +424,23 @@ def bwd_inputs(inp, seed):
         feat.device)
 
 
-def pair_margins(wfeat_c, u, v):
-    """Each (pixel, pair)'s distance from a decision that two f32
-    evaluations can take differently, in units of a first-order bound on
-    any f32 evaluation's error (a flip is possible only at <= 1): wfeat_c
-    (T, C, NFEAT) window features, u and v (T, PIX, 1) f64 rays.  The f64
-    evaluation of the same f32 inputs stands for the exact value; the
-    bound takes 6 roundings of the sum of |terms| for each quadratic form,
-    3 for BB, one for the division, 2 ulp for expf and one for the product
-    with the opacity.  Returns (3, T, PIX, C) margins of the alpha test
-    (where t can pass), the t test (where alpha can pass) and the sign of
-    num (where both can)."""
-    import numpy as np
+def pair_errors(wfeat_c, u, v):
+    """Each (pixel, pair)'s t, alpha and num from the f64 evaluation of
+    the same f32 inputs (standing for the exact values) with a first-order
+    bound on any f32 evaluation's error in each: wfeat_c (T, C, NFEAT)
+    window features, u and v (T, PIX, 1) f64 rays.  The bound takes 6
+    roundings of the sum of |terms| for each quadratic form, 3 for BB, one
+    for the division, 2 ulp for expf and one for the product with the
+    opacity; the normal n = (M^T M) d takes 3 roundings of the sum of
+    |terms| in each component, and its unit vector that error over |n|
+    plus 4 ulp.  Returns {name: (T, PIX, C)} for t, d_t, alpha, d_alpha,
+    N, d_N and d_nn."""
     import torch
     from f3d_gaus_torch.ops import rasterize as R
 
     au, av = u.abs(), v.abs()
-    # the thresholds as the f32 comparisons see them; f32's unit roundoff
-    eps_a, near = float(np.float32(R.ALPHA_EPS)), float(np.float32(R.NEAR_PLANE))
-    ur = 2.0 ** -24
-    inf = torch.tensor(float("inf"), dtype=torch.float64, device=u.device)
+    ur = 2.0 ** -24                                 # f32's unit roundoff
     tiny = 1e-300
-
     f = wfeat_c[:, None].double()                            # (T, 1, C, NFEAT)
     qa = [f[..., R.ROW_QA + i] for i in range(6)]
     qk = [f[..., R.ROW_QK + i] for i in range(6)]
@@ -439,13 +458,94 @@ def pair_margins(wfeat_c, u, v):
     d_t = t.abs() * (dB / BB.abs().clamp_min(tiny) + dA / A_s + 2 * ur) * keep
     d_mv = (dN + mv * dA) / A_s * keep + ur * mv
     d_alpha = alpha * (torch.expm1(0.5 * d_mv) + 6 * ur)
+    # n = (M^T M) d from AA's coefficients, as _chunk_eval un-doubles them
+    rows = [(qa[0], 0.5 * qa[1], 0.5 * qa[3]), (0.5 * qa[1], qa[2], 0.5 * qa[4]),
+            (0.5 * qa[3], 0.5 * qa[4], qa[5])]
+    n = [r[0] * u + r[1] * v + r[2] for r in rows]
+    dn2 = sum((3 * ur * (r[0].abs() * au + r[1].abs() * av + r[2].abs())) ** 2
+              for r in rows)
+    length = torch.sqrt(n[0] ** 2 + n[1] ** 2 + n[2] ** 2 + 1e-7)
+    d_nn = torch.sqrt(dn2) / length + 4 * ur
+    return {"t": t, "d_t": d_t, "alpha": alpha, "d_alpha": d_alpha, "N": N,
+            "d_N": dN, "d_nn": d_nn}
+
+
+def pair_margins(wfeat_c, u, v):
+    """Each (pixel, pair)'s distance from a decision that two f32
+    evaluations can take differently, in units of pair_errors' bound (a
+    flip is possible only at <= 1): wfeat_c (T, C, NFEAT) window
+    features, u and v (T, PIX, 1) f64 rays.  Returns (4, T, PIX, C)
+    margins of the alpha test (where t can pass), the t test (where alpha
+    can pass), the sign of num (where both can) and, there too, GRAD_TOL
+    over the relative error bound of alpha or of the normal (`cond`: the
+    pair's value itself is that uncertain)."""
+    import numpy as np
+    import torch
+    from f3d_gaus_torch.ops import rasterize as R
+
+    # the thresholds as the f32 comparisons see them
+    eps_a, near = float(np.float32(R.ALPHA_EPS)), float(np.float32(R.NEAR_PLANE))
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=u.device)
+    tiny = 1e-300
+    e = pair_errors(wfeat_c, u, v)
+    t, d_t, alpha, d_alpha = e["t"], e["d_t"], e["alpha"], e["d_alpha"]
     t_ok, a_ok = t + d_t > near, alpha + d_alpha >= eps_a
     # a test can flip the pair only where the other one can pass, the
     # clamp of num only where the pair can contribute
+    rel = torch.maximum(d_alpha / alpha.clamp_min(tiny), e["d_nn"])
     return torch.stack([
         torch.where(t_ok, (alpha - eps_a).abs() / d_alpha.clamp_min(tiny), inf),
         torch.where(a_ok, (t - near).abs() / d_t.clamp_min(tiny), inf),
-        torch.where(a_ok & t_ok, N.abs() / dN.clamp_min(tiny), inf)])
+        torch.where(a_ok & t_ok, e["N"].abs() / e["d_N"].clamp_min(tiny),
+                    inf),
+        torch.where(a_ok & t_ok, GRAD_TOL / rel.clamp_min(tiny), inf)])
+
+
+def alpha_error_bound(inp, mask, aux):
+    """A first-order bound, per pixel, on how far an f32 evaluation of the
+    compositing forward's colour, normal and alpha can lie from the exact
+    one through the rounding of its alphas and normals, given the decision
+    `mask` and the forward's `aux` (its contributors: the mask's bits up
+    to last_pos).  Out = sum_k T_k a_k c_k + T_N bg moves by at most
+    T_k (|c_k| + max(|c_i>k|, |bg|)) <= 2 cmax T_k per unit of a_k, and a
+    normal by T_k a_k per unit of its own error, so the bound is
+    sum_k T_k (2 cmax d_alpha_k + a_k d_nn_k), with pair_errors' d_alpha
+    and d_nn, T from the f64 alphas and cmax = max(1, |bg|, the
+    contributors' |rgb|) (normals and alpha have |c| <= 1).  Returns
+    (num_tiles, PIX) f64."""
+    import torch
+    from f3d_gaus_torch.ops import cuda_raster
+    from f3d_gaus_torch.ops import rasterize as R
+
+    s, b = inp.statics, inp.binning
+    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
+    _, valid, wfeat, n = R._windows(feat, b.point_list, b.tile_start,
+                                    b.tile_count, s)
+    rays = tuple(x.double()[..., None] for x in R._tile_rays(s, feat.device))
+    C = s.chunk
+    T = torch.ones(rays[0].shape[:2], dtype=torch.float64, device=feat.device)
+    d_a = torch.zeros_like(T)
+    d_n = torch.zeros_like(T)
+    cmax = torch.maximum(torch.ones_like(T), inp.bg.abs().max().double())
+    with torch.no_grad():
+        for ci in range(n):
+            sl = slice(ci * C, (ci + 1) * C)
+            pos = torch.arange(ci * C, (ci + 1) * C, device=feat.device)
+            contrib = (R._unpack_window_bits(mask, b.tile_start, ci * C, C)
+                       & valid[:, None, sl]
+                       & (pos <= aux.last_pos[..., None].long()))
+            if not bool(contrib.any()):
+                continue
+            e = pair_errors(wfeat[:, sl], *rays)
+            a = torch.where(contrib, e["alpha"], 0.0)
+            T_before = T[..., None] * R._exclusive_cumprod(1.0 - a, -1)
+            d_a += torch.where(contrib, T_before * e["d_alpha"], 0.0).sum(-1)
+            d_n += torch.where(contrib, T_before * a * e["d_nn"], 0.0).sum(-1)
+            rgb = wfeat[:, sl, R.ROW_RGB:R.ROW_RGB + 3].abs().amax(-1).double()
+            cmax = torch.maximum(cmax, torch.where(
+                contrib, rgb[:, None, :], 0.0).amax(-1))
+            T = T * torch.prod(1.0 - a, -1)
+    return 2.0 * cmax * d_a + d_n
 
 
 def flip_margins(inp, aux):
@@ -460,9 +560,9 @@ def flip_margins(inp, aux):
     For every walked pair (window position <= the pixel's last
     contributor, which both sides take from K1) the margin is
     pair_margins'.  Two f32 evaluations can decide differently only at a
-    margin <= 1.  Returns the (3, P) least margin over each Gaussian's
-    walked pairs by decision (alpha, t, num; inf for none) and the (P,)
-    mask of the Gaussians walked at all."""
+    margin <= 1.  Returns the (4, P) least margin over each Gaussian's
+    walked pairs by MARGIN_KINDS (alpha, t, num, cond; inf for none) and
+    the (P,) mask of the Gaussians walked at all."""
     import torch
     from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.ops import rasterize as R
@@ -474,7 +574,8 @@ def flip_margins(inp, aux):
     gids, valid, wfeat, n = R._windows(feat, b.point_list, b.tile_start,
                                        b.tile_count, s)
     gids = torch.where(valid, gids, P)
-    margin = torch.full((3, P + 1), float("inf"), dtype=torch.float64,
+    K = len(MARGIN_KINDS)
+    margin = torch.full((K, P + 1), float("inf"), dtype=torch.float64,
                         device=dev)
     walked_rows = torch.zeros(P + 1, dtype=torch.bool, device=dev)
     inf = torch.tensor(float("inf"), dtype=torch.float64, device=dev)
@@ -487,8 +588,8 @@ def flip_margins(inp, aux):
             pos = torch.arange(ci * C, (ci + 1) * C, device=dev)
             walked = valid[:, None, sl] & (pos <= aux.last_pos[..., None].long())
             ids = gids[:, sl].reshape(-1)
-            m = torch.where(walked, m, inf).amin(2).reshape(3, -1)
-            margin.scatter_reduce_(1, ids.expand(3, -1), m, "amin")
+            m = torch.where(walked, m, inf).amin(2).reshape(K, -1)
+            margin.scatter_reduce_(1, ids.expand(K, -1), m, "amin")
             walked_rows[ids[walked.any(1).reshape(-1)]] = True
     return margin[:, :P], walked_rows[:P]
 
@@ -565,21 +666,21 @@ def held_bwd(inp, args, kernel, plain, min_rows, kinds=FLIP_KINDS):
     """grad_agreement, required: at least `min_rows` of the rows within
     GRAD_TOL and, where that is below 1, each row outside holding a pair
     whose decision of one of `kinds` (of FLIP_KINDS) can flip
-    (flip_margins)."""
+    (flip_margins; the counts of MARGIN_KINDS are reported)."""
     res, bad = grad_agreement(kernel, plain)
     if min_rows < 1.0:
         by_kind, walked = flip_margins(inp, args[6])
         can_flip = by_kind <= 1.0
-        any_flip = can_flip[[FLIP_KINDS.index(k) for k in kinds]].any(0)
+        any_flip = can_flip[[MARGIN_KINDS.index(k) for k in kinds]].any(0)
         res.update(
             rows_outside_tol=int(bad.sum()), witnesses=list(kinds),
             unwitnessed_rows=int((bad & ~any_flip).sum()),
             outside_tol_can_flip={k: int((bad & can_flip[i]).sum())
-                                  for i, k in enumerate(FLIP_KINDS)},
+                                  for i, k in enumerate(MARGIN_KINDS)},
             walked_rows=int(walked.sum()),
             walked_rows_can_flip={
                 **{k: int((walked & can_flip[i]).sum())
-                   for i, k in enumerate(FLIP_KINDS)},
+                   for i, k in enumerate(MARGIN_KINDS)},
                 "any": int((walked & any_flip).sum())})
         require(res["unwitnessed_rows"] == 0, res)
     require(res["rows_within_tol"] >= min_rows, res)
@@ -639,6 +740,77 @@ def compare_given_mask(inp, seed, min_rows):
                                         kinds=("num",))}
 
 
+def versus_f64(inp, seed):
+    """K1 and K2 against their plain versions where thin Gaussians make the
+    monomial form's f32 evaluation ill-conditioned (the fitted per-scene
+    scene: both f32 evaluations differ from the f64 one by up to a few
+    1e-2; PERF.md).  Given the decision pass's mask, the plain versions
+    run in f64 on the same f32 inputs and stand for the exact value.  K1
+    must hold bench.py's anchor against it, where each value beyond
+    ANCHOR_MAX_ERR must lie within its pixel's alpha_error_bound (the f32
+    rounding of ill-conditioned alphas and normals can move it that far);
+    K2 must hold >= TRAIN_ROWS of its rows within GRAD_TOL x max|g| of it;
+    no witness is required of the rows outside, as the backward's own
+    divisions by T are ill-conditioned where pixels turn opaque: how many
+    of them hold a pair of each MARGIN_KINDS is reported.
+    The plain f32 version's figures against f64 and the direct
+    kernel-vs-plain errors (the anchor, and held_bwd's rows and witnesses)
+    are reported."""
+    import numpy as np
+    import torch
+    from f3d_gaus_torch.ops import cuda_raster
+    from f3d_gaus_torch.ops import rasterize as R
+    import torch_cases
+
+    feat, extra, slab, aux, g = bwd_inputs(inp, seed)
+    s = inp.statics
+    mask = cuda_raster.decide(feat, *slab[:3], s)
+    ko, ka = cuda_raster.composite_fwd(feat, *slab, s, mask=mask)
+    po, _ = R._composite_fwd_impl(feat, *slab, s, mask=mask)
+    qo, _ = R._composite_fwd_impl(feat.double(), *slab[:3], slab[3].double(),
+                                  s, mask=mask)
+    img = [R._tiles_to_image(o, s).cpu().numpy() for o in (ko, po, qo)]
+    bound = R._tiles_to_image(alpha_error_bound(inp, mask, ka)[..., None],
+                              s)[0].cpu().numpy()
+    ch = list(range(6)) + [7, 8]
+    fwd = {"bound_max": float(bound.max()), "bound_share_above_max": float(
+        (bound > ANCHOR_MAX_ERR).mean())}
+    for name, a, b in (("kernel_vs_plain", 0, 1), ("kernel_vs_f64", 0, 2),
+                       ("plain_vs_f64", 1, 2)):
+        err, frac = torch_cases.bench_parity(img[a], img[b])
+        fwd[name] = {"anchor_err": err, "anchor_frac_above_1e3": frac}
+        if b == 2:
+            e = np.abs(img[a][ch] - img[b][ch])
+            big = e > ANCHOR_MAX_ERR
+            fwd[name].update(values_above_max=int(big.sum()),
+                             unwitnessed=int((big & (e > bound)).sum()))
+    k64 = fwd["kernel_vs_f64"]
+    require(k64["anchor_frac_above_1e3"] <= ANCHOR_SHARE
+            and k64["unwitnessed"] == 0, fwd)
+
+    args = (feat, extra, *slab, ka, g, s)
+    kb = cuda_raster.composite_bwd(*args, mask=mask)
+    pb = R._composite_bwd_impl(*args, mask=mask)
+    aux64 = R.RenderAux(*[a.double() if a.is_floating_point() else a
+                          for a in ka])
+    qb = R._composite_bwd_impl(feat.double(), extra.double(), *slab[:3],
+                               slab[3].double(), aux64, g.double(), s,
+                               mask=mask)
+    can_flip = flip_margins(inp, ka)[0] <= 1.0
+    bwd = {"plain_vs_f64": grad_agreement(pb, qb)[0]}
+    for name, (k, p) in (("kernel_vs_f64", (kb, qb)),
+                         ("kernel_vs_plain", (kb, pb))):
+        res, bad = grad_agreement(k, p)
+        res.update(rows_outside_tol=int(bad.sum()), outside_tol_can_flip={
+            kind: int((bad & can_flip[i]).sum())
+            for i, kind in enumerate(MARGIN_KINDS)},
+            unwitnessed_rows=int((bad & ~can_flip.any(0)).sum()))
+        bwd[name] = res
+    require(bwd["kernel_vs_f64"]["rows_within_tol"] >= TRAIN_ROWS,
+            bwd["kernel_vs_f64"])
+    return {"fwd": fwd, "bwd": bwd}
+
+
 def compare_chain(cam, cloud, bg, kw, dev, seed):
     """Autograd of sum(out9 * w9) to the five inputs and means2d_stats, the
     kernel path against backend="torch": each input's largest error over
@@ -668,10 +840,12 @@ def compare_chain(cam, cloud, bg, kw, dev, seed):
     return res
 
 
-def time_kernel_bwd(inp, iters, seed):
+def time_kernel_bwd(inp, iters, seed, held=True):
     """K2's times on one prepared input, whole and each pass alone, the
-    plain backward's, the bounds, the agreement (of the gradients and of
-    the decision mask) and whether two launches agree bit for bit."""
+    plain backward's, the bounds, the agreement (of the gradients, held
+    by held_bwd and compare_given_mask unless `held` is False, where
+    versus_f64 holds them, and of the decision mask) and whether two
+    launches agree bit for bit."""
     import torch
     from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.ops import rasterize as R
@@ -690,9 +864,11 @@ def time_kernel_bwd(inp, iters, seed):
     plain = []
     plain_ms = time_ms(lambda: plain.append(R._composite_bwd_impl(*args)), 1,
                        warmup=0)
-    agree = held_bwd(inp, args, k1, plain[0], TRAIN_ROWS)
+    agree = {}
+    if held:
+        agree = held_bwd(inp, args, k1, plain[0], TRAIN_ROWS)
+        agree["given_mask"] = compare_given_mask(inp, seed, TRAIN_ROWS)
     agree["mask"] = compare_mask(inp, exact=False)
-    agree["given_mask"] = compare_given_mask(inp, seed, TRAIN_ROWS)
 
     # the work this input needs: every (pixel, pair) up to the pixel's last
     # contributor is decided, every contributor pulled back; the decision
@@ -1499,10 +1675,377 @@ def integrate_timing(mesh, args, dev, card):
                 **agree, running_min=running_min)
 
 
+# the per-scene path: a synthetic scene of NeRF-synthetic's shape
+# (transforms_train.json, 800x800 RGBA, camera_angle_x 0.6911, cameras on
+# the upper hemisphere at radius ~4.03 looking at the origin), fitted by
+# full_eval from the reader's 100,000-point random init at SH degree 3
+SCENE_VIEWS = 100
+SCENE_RES = 800
+SCENE_ANGLE_X = 0.6911
+SCENE_RADIUS = 4.03
+SCENE_GT = 200_000          # ground-truth Gaussians on the surfaces
+SCENE_INIT = 100_000        # read_blender_scene's random init cloud
+SCENE_MIN_ITERS = 1_100     # past the first SH band and 6 densifications
+# caps over the init cloud's largest planned render, room for what the
+# densifications bring (on the H100 the fitted scene needed 0.27x the pairs
+# and 1.19x the fullest tile of the init cloud's largest render; PERF.md)
+SCENE_PAIR_HEADROOM = 4.0
+SCENE_TILE_HEADROOM = 4.0
+SCENE_TIMED_STEPS = 10      # steps split by CUDA events after the fit
+
+
+def surface_gaussians(rng, n):
+    """About n opaque (0.9) Gaussians on textured surfaces inside
+    [-1, 1]^3: a checkered ground square, a sphere coloured by its normal
+    and a striped box, each Gaussian a disk tangent to its surface (normal
+    sigma 1/8 of the tangent one), SH degree 3 with small random higher
+    bands.  Returns (means, scales, quats, opacities, shs) numpy."""
+    import numpy as np
+    from f3d_gaus_torch.core import cameras as CM
+    from f3d_gaus_torch.core.sh import SH_C0
+
+    def plane(m):
+        xy = rng.uniform(-1, 1, size=(m, 2))
+        pts = np.concatenate([xy, np.full((m, 1), -0.6)], 1)
+        nrm = np.tile([0.0, 0.0, 1.0], (m, 1))
+        check = (np.floor(xy[:, 0] / 0.25) + np.floor(xy[:, 1] / 0.25)) % 2
+        col = np.where(check[:, None] > 0, [0.85, 0.8, 0.7], [0.2, 0.3, 0.5])
+        return pts, nrm, col + 0.08 * np.sin(9 * xy[:, :1])
+
+    def sphere(m):
+        nrm = rng.normal(size=(m, 3))
+        nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+        return [0.3, -0.25, -0.1] + 0.45 * nrm, nrm, 0.5 + 0.4 * nrm
+
+    def box(m):
+        face = rng.integers(0, 6, m)
+        axis, sign = face // 2, np.where(face % 2, 1.0, -1.0)
+        local = rng.uniform(-1, 1, size=(m, 3))
+        local[np.arange(m), axis] = sign
+        nrm = np.zeros((m, 3))
+        nrm[np.arange(m), axis] = sign
+        stripes = 0.5 + 0.4 * np.sin(12 * local[:, [1, 2, 0]])
+        return [-0.45, 0.4, -0.3] + 0.3 * local, nrm, stripes
+
+    areas = np.array([4.0, 4 * np.pi * 0.45 ** 2, 6 * 0.6 ** 2])
+    counts = np.round(n * areas / areas.sum()).astype(int)
+    parts = [f(m) for f, m in zip((plane, sphere, box), counts)]
+    pts, nrm, col = (np.concatenate(x).astype(np.float32) for x in zip(*parts))
+    total = int(counts.sum())
+    # a tangent frame per Gaussian: columns (t1, t2, n) of its rotation
+    helper = np.where(np.abs(nrm[:, :1]) < 0.9, [[1.0, 0, 0]], [[0, 1.0, 0]])
+    t1 = np.cross(nrm, helper)
+    t1 /= np.linalg.norm(t1, axis=1, keepdims=True)
+    rot = np.stack([t1, np.cross(nrm, t1), nrm], -1)
+    quats = CM.rotmat_to_quat(rot).astype(np.float32)
+    sigma = 0.7 * float(np.sqrt(areas.sum() / total))
+    scales = np.tile(np.float32([sigma, sigma, sigma / 8]), (total, 1))
+    shs = (rng.normal(size=(total, 16, 3)) * 0.03).astype(np.float32)
+    shs[:, 0] = (np.clip(col, 0.02, 0.98) - 0.5) / SH_C0
+    return (pts, scales, quats, np.full((total, 1), 0.9, np.float32), shs)
+
+
+def hemisphere_c2w(n, radius):
+    """n Blender camera-to-world matrices on the upper hemisphere (z up) at
+    `radius`, elevations 10-75 degrees on a golden-angle spiral, each
+    looking at the origin (OpenGL axes: -z forward, y up)."""
+    import numpy as np
+    out = []
+    for i in range(n):
+        el = np.radians(10 + 65 * (i + 0.5) / n)
+        az = i * np.pi * (3 - np.sqrt(5))
+        p = radius * np.array([np.cos(el) * np.cos(az),
+                               np.cos(el) * np.sin(az), np.sin(el)])
+        f = -p / np.linalg.norm(p)
+        r = np.cross(f, [0.0, 0.0, 1.0])
+        r /= np.linalg.norm(r)
+        c2w = np.eye(4)
+        c2w[:3, :3] = np.stack([r, np.cross(r, f), -f], 1)
+        c2w[:3, 3] = p
+        out.append(c2w)
+    return out
+
+
+def write_scene(root, rng, dev):
+    """The synthetic scene on disk: transforms_train.json, then the
+    ground truth rendered through the PARSED cameras (with K1) and written
+    as RGBA PNGs, alpha = rendered_alpha and the colour un-premultiplied
+    (NeRF-synthetic's layout; the reader composites it on black again).
+    Requires each parsed camera's world_view within 1e-5 of the one built
+    here from the look-at frame.  Returns a summary."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from f3d_gaus_torch.ops import rasterize as R
+    from f3d_gaus_torch.pipeline import scene_io
+
+    t0 = time.perf_counter()
+    c2ws = hemisphere_c2w(SCENE_VIEWS, SCENE_RADIUS)
+    os.makedirs(os.path.join(root, "train"), exist_ok=True)
+    frames = [{"file_path": f"./train/r_{i}", "transform_matrix": c.tolist()}
+              for i, c in enumerate(c2ws)]
+    with open(os.path.join(root, "transforms_train.json"), "w") as f:
+        json.dump({"camera_angle_x": SCENE_ANGLE_X, "frames": frames}, f)
+    # before the images exist the reader takes NeRF-synthetic's 800x800
+    parsed = scene_io.read_blender_scene(root, n_init_points=1)
+    wv_err = 0.0
+    for c2w, sc in zip(c2ws, parsed.cameras):
+        # world -> camera in OpenCV axes (x right, y down, z forward)
+        rows = np.stack([c2w[:3, 0], -c2w[:3, 1], -c2w[:3, 2]])
+        w2c = np.eye(4)
+        w2c[:3, :3], w2c[:3, 3] = rows, -rows @ c2w[:3, 3]
+        wv_err = max(wv_err, float(np.abs(sc.camera.world_view - w2c.T).max()))
+    require(wv_err <= 1e-5, f"parsed world_view off by {wv_err}")
+
+    gt = cloud_to(surface_gaussians(rng, SCENE_GT), dev)
+    bg = torch.zeros(3, device=dev)
+    pairs, alpha_mean = [], []
+    for i, sc in enumerate(parsed.cameras):
+        cam = sc.camera._replace(width=SCENE_RES, height=SCENE_RES)
+        caps = R.plan_caps(*gt[:4], cam)
+        with torch.no_grad():
+            out = R.render(*gt, cam, bg, sh_degree=3, **caps)
+        require(not bool(out["overflow"]), f"ground-truth view {i} truncated")
+        a = out["rendered_alpha"]
+        rgb = torch.where(a > 0, out["render"] / a.clamp_min(1e-6), 0.0)
+        rgba = torch.cat([rgb, a]).clamp(0, 1).permute(1, 2, 0)
+        Image.fromarray((rgba * 255).round().byte().cpu().numpy(), "RGBA"
+                        ).save(os.path.join(root, f"train/r_{i}.png"),
+                               compress_level=1)
+        pairs.append(int(out["binning"].num_pairs))
+        alpha_mean.append(float(a.mean()))
+    return {"views": SCENE_VIEWS, "resolution": SCENE_RES,
+            "gt_gaussians": int(gt[0].shape[0]), "world_view_max_err": wv_err,
+            "gt_pairs_max": max(pairs), "alpha_mean": float(np.mean(
+                alpha_mean)), "write_s": time.perf_counter() - t0}
+
+
+def plan_scene_caps(data, dev):
+    """Caps for the fit: rasterize.plan_caps (margin 1) over the init
+    cloud's alive rows at every training camera, the largest pair count
+    and per-tile occupancy, times the headroom."""
+    from f3d_gaus_torch.full_eval import _split
+    from f3d_gaus_torch.ops import binning as B
+    from f3d_gaus_torch.train import per_scene as PS
+
+    init = PS.init_scene(data.points, data.colors, PS.PerSceneConfig(),
+                         device=dev)
+    planned = needed_caps(init, [sc.camera for sc in
+                                 _split(data.cameras, True)[0]])
+    pair_cap, mpt = planned["pair_cap"], planned["max_per_tile"]
+    caps = {"pair_cap": B.suggest_pair_cap(int(pair_cap * SCENE_PAIR_HEADROOM)),
+            "max_per_tile": -(-int(mpt * SCENE_TILE_HEADROOM) // 256) * 256}
+    return planned, caps
+
+
+def scene_kernel_inputs(scene, cam, cfg):
+    """rasterize.prepare of the trained scene at one camera, as the test
+    renders take it (SH degree cfg.sh_degree, dead rows culled)."""
+    import torch
+    from f3d_gaus_torch.ops import rasterize as R
+    from f3d_gaus_torch.train import per_scene as PS
+
+    g = PS.activated(scene)
+    return R.prepare(g["xyz"], g["scaling"], g["rotation"], g["opacity"],
+                     g["shs"], cam, torch.zeros(3, device=scene.xyz.device),
+                     sh_degree=cfg.sh_degree, pair_cap=cfg.pair_cap,
+                     max_per_tile=cfg.max_per_tile, chunk=cfg.chunk,
+                     mask=scene.alive)
+
+
+def scene_path(args, dev, card):
+    """Phase 9: full_eval.full_eval on a synthetic NeRF-synthetic-shaped
+    scene at PerSceneConfig() with args.scene_iterations and planned caps,
+    the launch counts set to 0 just before it; then the fitted scene's
+    step split, the init scene's PSNR on the test views, and K1 / K2 /
+    the decision pass against their plain versions at the fitted scene
+    and one training camera."""
+    import shutil
+    import numpy as np
+    import torch
+    from f3d_gaus_torch import eval as EV
+    from f3d_gaus_torch import full_eval as FE
+    from f3d_gaus_torch.ops import cuda_raster
+    from f3d_gaus_torch.ops import knn
+    from f3d_gaus_torch.pipeline import scene_io
+    from f3d_gaus_torch.train import per_scene as PS
+
+    require(args.scene_iterations >= SCENE_MIN_ITERS,
+            f"--scene_iterations below {SCENE_MIN_ITERS}")
+    work = os.path.join(ROOT, "build", "scene_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, "synthetic")
+    torch.cuda.empty_cache()
+    written = write_scene(root, np.random.default_rng(args.seed + 3), dev)
+    emit("scene_write", card=card, **written)
+
+    t0 = time.perf_counter()
+    data = scene_io.read_blender_scene(root, load_images=True,
+                                       n_init_points=SCENE_INIT)
+    load_s = time.perf_counter() - t0
+    pts = torch.from_numpy(data.points).to(dev)
+    knn.mean_dist3(pts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    knn.mean_dist3(pts)
+    torch.cuda.synchronize()
+    knn_s = time.perf_counter() - t0
+    planned, caps = plan_scene_caps(data, dev)
+    # the reference's defaults but for the iterations and the caps
+    cfg = PS.PerSceneConfig()._replace(iterations=args.scene_iterations,
+                                       **caps)
+    train_cams, test_cams = FE._split(data.cameras, True)
+
+    # the fit's scene and history, taken from full_eval's own call
+    fits, fit = [], PS.fit_scene
+
+    def fit_and_keep(*a, **k):
+        timings = {}
+        fits.append((*fit(*a, **k, timings=timings), timings))
+        return fits[-1][:2]
+
+    out = os.path.join(work, "out")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_raster.launches = cuda_raster.launches_bwd = 0
+    cuda_raster.launches_decide = 0
+    PS.fit_scene = fit_and_keep
+    t0 = time.perf_counter()
+    try:
+        agg = FE.full_eval([root], out, cfg=cfg, n_init_points=SCENE_INIT,
+                           device=dev)
+    finally:
+        PS.fit_scene = fit
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = (cuda_raster.launches, cuda_raster.launches_bwd,
+                cuda_raster.launches_decide)
+    peak = torch.cuda.max_memory_allocated()
+    scene, hist, timings = fits[0]
+    summary = agg["scenes"][0]
+
+    n_it, n_test = cfg.iterations, len(test_cams)
+    loss, w = hist["step_loss"], min(100, n_it // 2)
+    first, last = float(np.mean(loss[:w])), float(np.mean(loss[-w:]))
+    alive = [SCENE_INIT] + [d["alive"] for d in hist["densify"]]
+
+    # the init scene on the same test views, through the same metric
+    init = PS.init_scene(data.points, data.colors, cfg, device=dev)
+    rdir = os.path.join(work, "init_renders")
+    os.makedirs(rdir)
+    for sc in test_cams:
+        with torch.no_grad():
+            r = PS.render_scene(init, sc.camera, cfg, torch.zeros(3,
+                                                                  device=dev),
+                                cfg.sh_degree)
+        FE._save_png(os.path.join(rdir, os.path.splitext(sc.name)[0]
+                                  + ".png"), r["render"].cpu().numpy())
+    init_m = EV.evaluate_dirs(rdir, os.path.join(out, "synthetic", "test",
+                                                 "gt"), device=dev)["mean"]
+    del init
+
+    # the step split at the fitted scene (the counted run is over)
+    opt, stats = PS.init_adam(scene), PS.init_stats(scene)
+    targets = torch.from_numpy(np.stack([np.transpose(c.image, (2, 0, 1))
+                                         for c in train_cams[:4]])).to(dev)
+    split = []
+    for i in range(SCENE_TIMED_STEPS + 2):
+        cam = train_cams[i % 4].camera
+        t = {}
+        _, opt, stats, _ = PS.train_step(
+            scene, opt, stats, (cam.world_view, cam.full_proj,
+                                cam.cam_center),
+            targets[i % 4], torch.zeros(3, device=dev), cfg,
+            min(n_it // cfg.sh_degree_interval, cfg.sh_degree),
+            (cam.width, cam.height, cam.tan_fovx, cam.tan_fovy), timings=t)
+        if i >= 2:
+            split.append(t)
+    del opt, stats, targets
+    step_ms = {k: float(np.median([t[k] for t in split]))
+               for k in ("forward", "backward", "adam")}
+    step_ms["step"] = float(np.median([sum(t.values()) for t in split]))
+
+    # the caps the fitted scene needs at the training cameras
+    need = needed_caps(scene, [sc.camera for sc in train_cams])
+    emit("scene_path", card=card, config="PerSceneConfig()",
+         reduced={"iterations": f"{n_it} of the reference's 30,000",
+                  "opacity_reset": "the first (iteration 3,000) is not "
+                                   "reached; reset_opacity is held on the "
+                                   "CPU (tests/test_torch_per_scene.py)"},
+         scene={"views": SCENE_VIEWS, "train": len(train_cams),
+                "test": n_test, "resolution": SCENE_RES,
+                "init_points": SCENE_INIT, "sh_degree": cfg.sh_degree,
+                "extent": data.extent},
+         caps_planned_init=planned, caps=caps,
+         caps_needed_trained=need,
+         stage_s={"scene_load_alone": load_s, **{
+             k: timings[k] for k in ("init_s", "steps_s", "surgery_s")},
+             "test_render_and_metrics": wall_s - sum(
+                 timings[k] for k in ("init_s", "steps_s", "surgery_s"))},
+         full_eval_wall_s=wall_s, knn_s=knn_s, knn_points=SCENE_INIT,
+         mean_step_ms=timings["steps_s"] / n_it * 1e3,
+         median_step_ms_split=step_ms, timed_steps=SCENE_TIMED_STEPS,
+         alive_per_densification=hist["densify"],
+         loss_first_100=first, loss_last_100=last,
+         test_psnr=summary["test_psnr"], test_ssim=summary["test_ssim"],
+         init_psnr=init_m["psnr"], init_ssim=init_m["ssim"],
+         overflow_steps=hist["overflow_steps"],
+         final_gaussians=summary["final_gaussians"],
+         peak_allocated_bytes=peak,
+         launches={"raster_fwd": launches[0], "raster_bwd": launches[1],
+                   "gof_decide": launches[2]})
+    require(launches == (n_it + n_test, n_it, 2 * n_it + n_test),
+            f"per-scene launches K1 / K2 / decision {launches}")
+    require(hist["overflow_steps"] == 0 and summary["overflow_steps"] == 0,
+            f"{hist['overflow_steps']} steps truncated by the caps {caps}")
+    require(all(bool(torch.isfinite(t).all()) for t in scene[:-1]),
+            "non-finite parameters")
+    require(last < first, f"loss {first} -> {last}")
+    require(len(set(alive)) > 1, f"alive counts {alive}")
+    require(summary["test_psnr"] > init_m["psnr"],
+            f"test PSNR {summary['test_psnr']} <= init {init_m['psnr']}")
+
+    # K1, K2 and the decision pass at the fitted scene, first training view
+    inp = scene_kernel_inputs(scene, train_cams[0].camera, cfg)
+    require(not bool(inp.binning.overflow), "fitted scene's caps overflow")
+    torch.cuda.empty_cache()
+    vs = versus_f64(inp, args.seed + 2)
+    emit("kernel_vs_f64", case=f"per_scene_{SCENE_RES}", caps=caps,
+         tol=f"given the decision mask, against the plain version in f64: "
+             f"K1 <= {ANCHOR_SHARE} of values above {ANCHOR_ABOVE}, each "
+             f"value above {ANCHOR_MAX_ERR} within its pixel's f32 error "
+             f"bound (alpha_error_bound); K2 {GRAD_TOL} x max|g| per column "
+             f"on >= {TRAIN_ROWS} of rows", **vs)
+    fwd = time_kernel(inp, TIMED_LAUNCHES, 1, held=False)
+    fwd.update(vs["fwd"]["kernel_vs_plain"])
+    emit("kernel_timing", card=card, shape="per_scene", **fwd)
+    bwd = time_kernel_bwd(inp, TIMED_LAUNCHES, args.seed, held=False)
+    bwd.update(vs["bwd"]["kernel_vs_plain"])
+    emit("kernel_timing_bwd", card=card, shape="per_scene", **bwd)
+    return launches, fwd, bwd
+
+
+
+def needed_caps(scene, cams):
+    """The largest exact pair count and per-tile occupancy of a scene's
+    alive rows over `cams` (rasterize.plan_caps, margin 1, no buckets)."""
+    from f3d_gaus_torch.ops import rasterize as R
+    from f3d_gaus_torch.train import per_scene as PS
+
+    g = PS.activated(scene)
+    args = [g[k][scene.alive] for k in ("xyz", "scaling", "rotation",
+                                        "opacity")]
+    caps = [R.plan_caps(*args, cam, margin=1.0, pair_bucket=1, tile_bucket=1)
+            for cam in cams]
+    return {k: max(c[k] for c in caps) for k in ("pair_cap", "max_per_tile")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--num_nvs_views", type=int, default=128)
+    ap.add_argument("--scene_iterations", type=int, default=2000)
     args = ap.parse_args(argv)
 
     # the training step fills most of the card; segments that grow keep
@@ -1531,10 +2074,17 @@ def main(argv=None) -> int:
         train_given = training_path(args, dev, card)
     masks += train_masks
     given += train_given
+    (scene_k1, scene_k2, scene_decide), scene_fwd, scene_bwd = scene_path(
+        args, dev, card)
+    masks += [scene_fwd["mask"], scene_bwd["mask"]]
+    fwd_shapes["per_scene"] = scene_fwd
+    bwd_shapes["per_scene"] = scene_bwd
 
     nvs, cano = fwd_shapes["nvs"], bwd_shapes["canonical"]
     given_note = (f"; given the decision pass's mask, on {len(given)} inputs "
-                  "(flagship, 4 training renders)")
+                  "(flagship, 4 training renders; the per-scene render is "
+                  "held against the plain version in f64, phase "
+                  "kernel_vs_f64)")
     csrc = "f3d_gaus_torch/csrc/"
     kernels = [{
         "name": "raster_fwd", "route": "cuda",
@@ -1542,15 +2092,16 @@ def main(argv=None) -> int:
         "sources": [csrc + f for f in ("gof_decide.cu", "raster_fwd.cu",
                                        "gof_pair.cuh")],
         "replaces": "f3d_gaus_tpu/ops/pallas_raster.py:230",
-        "launches": serve_k1 + train_k1 + mesh_k1,
+        "launches": serve_k1 + train_k1 + mesh_k1 + scene_k1,
         "launches_by_path": {"serving": serve_k1, "training": train_k1,
-                             "mesh": mesh_k1},
+                             "mesh": mesh_k1, "per_scene": scene_k1},
         "max_abs_err": nvs["anchor_err"],
         "ms": nvs["ms"], "plain_ms": nvs["plain_ms"],
         "bound_ms": nvs["bound_ms"], "bound_by": nvs["bound_by"],
         "library_ms": None,
         "at": f"NVS render, P={nvs['P']} ({n_nvs} of {n_render} serving "
-              f"launches per attempt; {3 * B} per training step); ms is "
+              f"launches per attempt; {3 * B} per training step; 1 per "
+              "per-scene step and test render); ms is "
               "the decision pass and the compositing pass together; "
               "max_abs_err over out9 channels 0-5,7,8; given_mask_* "
               "against the plain version" + given_note,
@@ -1568,14 +2119,16 @@ def main(argv=None) -> int:
         "sources": [csrc + f for f in ("gof_decide.cu", "raster_bwd.cu",
                                        "gof_pair.cuh")],
         "replaces": "f3d_gaus_tpu/ops/pallas_raster.py:401",
-        "launches": train_k2,
-        "launches_by_path": {"serving": 0, "training": train_k2, "mesh": 0},
+        "launches": train_k2 + scene_k2,
+        "launches_by_path": {"serving": 0, "training": train_k2, "mesh": 0,
+                             "per_scene": scene_k2},
         "max_abs_err": cano["max_abs_err"],
         "ms": cano["ms"], "plain_ms": cano["plain_ms"],
         "bound_ms": cano["bound_ms"], "bound_by": cano["bound_by"],
         "library_ms": None,
         "at": f"canonical training render, P={cano['P']} ({B} of {3 * B} "
-              "launches per training step); ms is the decision pass and "
+              "launches per training step; 1 per per-scene step); ms is "
+              "the decision pass and "
               "the backward pass together; max_abs_err over d_feat and "
               f"d_stats (largest |g| {cano['max_abs_grad']:.6g}, rows within "
               f"{GRAD_TOL} x max|g| {cano['rows_within_tol']:.6g}); flagship "
@@ -1596,9 +2149,10 @@ def main(argv=None) -> int:
         "name": "gof_decide", "route": "cuda",
         "source": csrc + "gof_decide.cu",
         "replaces": "f3d_gaus_tpu/ops/pallas_raster.py:262",
-        "launches": serve_decide + train_decide + mesh_k1,
+        "launches": serve_decide + train_decide + mesh_k1 + scene_decide,
         "launches_by_path": {"serving": serve_decide,
-                             "training": train_decide, "mesh": mesh_k1},
+                             "training": train_decide, "mesh": mesh_k1,
+                             "per_scene": scene_decide},
         "max_abs_err": int(any(m["bits_differ"] for m in masks)),
         "bits_differ": sum(m["bits_differ"] for m in masks),
         "ms": nvs["decide_ms"], "plain_ms": nvs["decide_plain_ms"],
@@ -1616,14 +2170,15 @@ def main(argv=None) -> int:
                        **{f: v[f] for f in ("P", "decide_ms",
                                             "decide_plain_ms",
                                             "decide_bound_ms") if f in v}}
-                   for k, v in {**fwd_shapes, **bwd_shapes}.items()},
+                   for k, v in {**bwd_shapes, **fwd_shapes}.items()},
     }, {
         "name": "integrate", "route": "cuda",
         "source": csrc + "integrate.cu",
         "replaces": "f3d_gaus_tpu/ops/integrate.py:82",
         "launches": mesh["launches"]["integrate"],
         "launches_by_path": {"serving": 0, "training": 0,
-                             "mesh": mesh["launches"]["integrate"]},
+                             "mesh": mesh["launches"]["integrate"],
+                             "per_scene": 0},
         "max_abs_err": max(field["max_abs_err"],
                            field["running_min"]["max_abs_err"]),
         "ms": field["ms"], "plain_ms": field["plain_ms"],

@@ -45,3 +45,34 @@ class StageClock:
         now = time.perf_counter()
         self.timings[name] = now - self.t
         self.t = now
+
+
+class EventClock:
+    """Milliseconds per stage into `timings` (a dict) from CUDA events
+    recorded between the stages, with no sync until `close`, which waits
+    for the last event (host clock on the CPU); does nothing when
+    `timings` is None."""
+
+    def __init__(self, device, timings):
+        self.device, self.timings = device, timings
+        self.marks = [(None, self._now())] if timings is not None else None
+
+    def _now(self):
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def lap(self, name):
+        if self.marks is not None:
+            self.marks.append((name, self._now()))
+
+    def close(self):
+        if self.marks is None:
+            return
+        if self.device.type == "cuda":
+            self.marks[-1][1].synchronize()
+        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
+            self.timings[name] = (a.elapsed_time(b) if self.device.type ==
+                                  "cuda" else (b - a) * 1e3)

@@ -1,2 +1,2 @@
-"""Training: the feed-forward trainer, its losses and checkpoints
-(counterpart of f3d_gaus_tpu/train/)."""
+"""Training: the feed-forward and per-scene trainers, their losses and
+checkpoints (counterpart of f3d_gaus_tpu/train/)."""

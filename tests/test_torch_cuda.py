@@ -1,7 +1,8 @@
 """The CUDA kernels (the decision pass csrc/gof_decide.cu,
 csrc/raster_fwd.cu, csrc/raster_bwd.cu, the field query
 csrc/integrate.cu) against their plain PyTorch versions on the card, one
-feed-forward training step and one mesh extraction there.  Needs a CUDA
+feed-forward training step, one per-scene training step and one mesh
+extraction there.  Needs a CUDA
 device and nvcc; skips elsewhere.
 Imports no JAX, so on the card's machine it runs without the JAX
 package's conftest:
@@ -19,6 +20,7 @@ from f3d_gaus_torch.ops import rasterize as TR
 from f3d_gaus_torch.pipeline import config as TCfg
 from f3d_gaus_torch.pipeline import dataset as TD
 from f3d_gaus_torch.train import feedforward as TF
+from f3d_gaus_torch.train import per_scene as TPS
 import torch_cases  # tests/ is on sys.path under pytest (rootdir-less dir)
 
 pytestmark = pytest.mark.cuda
@@ -250,3 +252,117 @@ def test_integrate_wrapper_rejects_bad_inputs(cuda):
     out = torch.ones_like(q.u)
     got = cuda_raster.integrate(*args, 64, out=out)
     assert got is out and bool((out <= 1).all())
+
+
+def _odd_frame_case(device):
+    """A 40x24 frame (neither side a multiple of 16), SH degree 3 and dead
+    rows: (camera, cloud tensors, mask, bg, render kwargs)."""
+    rng = np.random.default_rng(3)
+    cam = torch_cases.orbit_camera(40, 24)
+    cloud = torch_cases.make_gaussian_cloud(rng, 96, spread=0.35,
+                                            scale_range=(0.02, 0.12),
+                                            sh_degree=3)
+    mask = torch.from_numpy(rng.uniform(size=96) > 0.25).to(device)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=device)
+    kw = dict(sh_degree=3, pair_cap=1 << 12, max_per_tile=128, chunk=32)
+    return cam, [torch.from_numpy(a).to(device) for a in cloud], mask, bg, kw
+
+
+def test_kernels_on_an_odd_frame_with_dead_rows(cuda):
+    """K1 and K2 against their plain versions where padding pixels take
+    part in their tiles and are cropped, and dead rows are culled by the
+    mask: out9 and final_T within 1e-4, positions equal; d_feat and
+    d_stats within 5e-3 x max |g| per column; the chain to the five inputs
+    and means2d_stats within 5e-3 x max |g|."""
+    cam, cloud, mask, bg, kw = _odd_frame_case(cuda)
+    inp = TR.prepare(*cloud, cam, bg, mask=mask, **kw)
+    assert (inp.statics.grid_x, inp.statics.grid_y) == (3, 2)
+    assert (inp.pre.radii[~mask] == 0).all() and (inp.pre.radii > 0).sum() > 40
+    ko, ka = TR.composite(inp)
+    po, pa = TR.composite(inp, "torch")
+    torch.testing.assert_close(ko, po, atol=1e-4, rtol=0)
+    torch.testing.assert_close(ka.final_T, pa.final_T, atol=1e-4, rtol=0)
+    assert torch.equal(ka.last_pos, pa.last_pos)
+    assert torch.equal(ka.max_pos, pa.max_pos)
+    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
+    extra = torch.cat([inp.pre.conic, inp.pre.means2d], 1).detach()
+    b = inp.binning
+    slab = (b.point_list, b.tile_start, b.tile_count, inp.bg)
+    g = np.random.default_rng(4).normal(size=tuple(ko.shape)).astype(np.float32)
+    g[..., 7] = 0.0
+    args = (feat, extra, *slab, ka, torch.from_numpy(g).to(cuda), inp.statics)
+    k = cuda_raster.composite_bwd(*args)
+    p = TR._composite_bwd_impl(*args)
+    for got, ref in zip(k, p):
+        assert torch.isfinite(got).all()
+        assert ((got - ref).abs()
+                <= 5e-3 * ref.abs().amax(0, keepdim=True)).all()
+    assert (k[1][~mask] == 0).all() and k[1].abs().max() > 0
+
+    w9 = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(9, 24, 40)).astype(np.float32)).to(cuda)
+    w9[7] = 0.0
+    grads = []
+    for backend in ("auto", "torch"):
+        ts = [t.clone().requires_grad_() for t in cloud]
+        ts.append(torch.zeros((96, 3), device=cuda, requires_grad=True))
+        out = TR.render(*ts[:5], cam, bg, means2d_stats=ts[5], mask=mask,
+                        backend=backend, **kw)
+        assert out["out9"].shape == (9, 24, 40)
+        (out["out9"] * w9).sum().backward()
+        grads.append([t.grad for t in ts])
+    for got, ref in zip(*grads):
+        assert torch.isfinite(got).all()
+        assert (got - ref).abs().max() <= 5e-3 * ref.abs().max()
+
+
+def test_per_scene_train_step_on_the_card(cuda):
+    """One per_scene.train_step on the card against the same step on the
+    CPU, at SH degree 3 with dead rows: the loss within 1e-5 relative,
+    the visible rows and radii equal, each group's gradient (through the
+    first moments) within 5e-3 x max |g|; one K1, one K2 and two decision
+    launches."""
+    rng = np.random.default_rng(6)
+    cfg = TPS.PerSceneConfig(sh_degree=3, pair_cap=1 << 12, max_per_tile=128,
+                             chunk=32, cap_bucket=128)
+    pts = (rng.normal(size=(40, 3)) * 0.3 + [0, 0, 7.667]).astype(np.float32)
+    scene = TPS.init_scene(pts, rng.uniform(size=(40, 3)), cfg, cap=128,
+                           device="cpu")
+    alive = scene.alive.clone()
+    alive[5:9] = False
+    scene = scene._replace(
+        f_rest=torch.from_numpy((rng.normal(size=(128, 15, 3)) * 0.2
+                                 ).astype(np.float32)),
+        scaling=scene.scaling + torch.from_numpy(
+            (rng.normal(size=(128, 3)) * 0.4).astype(np.float32)),
+        rotation=torch.from_numpy(rng.normal(size=(128, 4)).astype(np.float32)),
+        alive=alive)
+    cam = torch_cases.orbit_camera(40, 24)
+    target = torch.from_numpy(rng.uniform(size=(3, 24, 40)).astype(np.float32))
+    arrays = (cam.world_view, cam.full_proj, cam.cam_center)
+    statics = (cam.width, cam.height, cam.tan_fovx, cam.tan_fovy)
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        s = TPS.SceneParams(*[t.to(dev) for t in scene])
+        launches = (cuda_raster.launches, cuda_raster.launches_bwd,
+                    cuda_raster.launches_decide)
+        results.append(TPS.train_step(s, TPS.init_adam(s), TPS.init_stats(s),
+                                      arrays, target.to(dev),
+                                      torch.zeros(3, device=dev), cfg, 3,
+                                      statics))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (cuda_raster.launches - launches[0],
+                    cuda_raster.launches_bwd - launches[1],
+                    cuda_raster.launches_decide - launches[2]) == (1, 1, 2)
+    (_, k_opt, k_stats, k_aux), (_, p_opt, p_stats, p_aux) = results
+    assert not bool(k_aux["overflow"])
+    torch.testing.assert_close(k_aux["loss"].cpu(), p_aux["loss"], rtol=1e-5,
+                               atol=0)
+    assert torch.equal(k_stats.denom.cpu(), p_stats.denom)
+    assert torch.equal(k_stats.max_radii2d.cpu(), p_stats.max_radii2d)
+    for got, ref in [(k_stats.grad_accum.cpu(), p_stats.grad_accum)] + [
+            (getattr(k_opt.mu, f).cpu(), getattr(p_opt.mu, f))
+            for f in TPS.SceneParams._fields[:-1]]:
+        assert torch.isfinite(got).all()
+        assert (got - ref).abs().max() <= 5e-3 * ref.abs().max()

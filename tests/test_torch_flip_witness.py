@@ -6,7 +6,10 @@ whose alpha is put on 1/255.  Likewise its check of the decision pass's
 mask (compare_mask): a bit that differs at that pair is witnessed, one at
 a pair far from every threshold, or outside the windows, is refused.  And
 its check of the compositing passes given the decision mask
-(compare_given_mask), where only the clamp of num may witness a row."""
+(compare_given_mask), where only the clamp of num may witness a row; and
+its check against the plain versions run in f64 (versus_f64) with the
+per-pixel f32 error bound it witnesses large errors by
+(alpha_error_bound)."""
 import os
 import sys
 
@@ -179,3 +182,73 @@ def test_given_mask_check(monkeypatch, where):
         assert res["rows_outside_tol"] == 1 and res["unwitnessed_rows"] == 0
         with pytest.raises(RuntimeError, match="unwitnessed_rows': 1"):
             S.compare_given_mask(inp, 0, 0.0)
+
+
+@pytest.mark.parametrize("where", ["agree", "forward", "backward"])
+def test_versus_f64_check(monkeypatch, where):
+    """versus_f64, with the plain versions standing in for the kernels:
+    it accepts them, and refuses a forward 3e-2 off at one pixel of
+    well-conditioned Gaussians (beyond that pixel's f32 error bound), or a
+    backward with one row in a hundred doubled."""
+    inp, *_ = _inputs()
+    fwd, bwd = TR._composite_fwd_impl, TR._composite_bwd_impl
+
+    def fwd_off(*a, **kw):
+        out, aux = fwd(*a, **kw)
+        out = out.clone()
+        out[1, 7, 0] += 3e-2
+        return out, aux
+
+    def bwd_off(*a, **kw):
+        d_feat, d_stats = bwd(*a, **kw)
+        d_feat = d_feat.clone()
+        d_feat[::100] *= 2.0
+        return d_feat, d_stats
+
+    monkeypatch.setattr(cuda_raster, "decide", TR._contrib_mask_impl)
+    monkeypatch.setattr(cuda_raster, "composite_fwd",
+                        fwd_off if where == "forward" else fwd)
+    monkeypatch.setattr(cuda_raster, "composite_bwd",
+                        bwd_off if where == "backward" else bwd)
+    if where == "agree":
+        res = S.versus_f64(inp, 0)
+        assert res["fwd"]["kernel_vs_plain"]["anchor_err"] == 0
+        assert res["fwd"]["kernel_vs_f64"]["anchor_err"] < 1e-5
+        assert res["bwd"]["kernel_vs_f64"]["rows_within_tol"] == 1.0
+        assert res["bwd"]["kernel_vs_plain"]["rows_outside_tol"] == 0
+    else:
+        why = {"forward": r"'kernel_vs_f64': \{'anchor_err': 0\.0[23].*"
+                          r"'unwitnessed': 1\}",
+               "backward": r"'rows_within_tol': 0\.98"}[where]
+        with pytest.raises(RuntimeError, match=why):
+            S.versus_f64(inp, 0)
+
+
+@pytest.mark.parametrize("thin", [1e-2, 1e-4, 3e-5])
+def test_alpha_error_bound_covers_f32_rounding(thin):
+    """alpha_error_bound covers how far the plain compositing forward in
+    f32 lies from the same forward in f64 (same inputs, same mask) on
+    every colour, normal and alpha value, for Gaussians whose third scale
+    shrinks to `thin` (the ill-conditioned case of the fitted per-scene
+    scene), and grows as they thin."""
+    rng = np.random.default_rng(0)
+    cam = torch_cases.orbit_camera(32, 32)
+    cloud = list(torch_cases.make_gaussian_cloud(
+        rng, 200, spread=0.3, scale_range=(0.03, 0.1)))
+    cloud[1][:, 2] = thin
+    cloud[3][:] = rng.uniform(0.5, 0.99, size=cloud[3].shape)
+    inp = TR.prepare(*[torch.from_numpy(a) for a in cloud], cam,
+                     torch.tensor([0.1, 0.2, 0.3]), device="cpu",
+                     pair_cap=1 << 14, max_per_tile=256, chunk=32)
+    s, b = inp.statics, inp.binning
+    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
+    slab = (b.point_list, b.tile_start, b.tile_count)
+    mask = TR._contrib_mask_impl(feat, *slab, s)
+    po, pa = TR._composite_fwd_impl(feat, *slab, inp.bg, s, mask=mask)
+    qo, _ = TR._composite_fwd_impl(feat.double(), *slab, inp.bg.double(), s,
+                                   mask=mask)
+    bound = S.alpha_error_bound(inp, mask, pa)
+    err = (po.double() - qo)[..., [0, 1, 2, 3, 4, 5, 7]].abs()
+    assert err.max() > 1e-5
+    assert (err <= bound[..., None] + 1e-5).all()
+    assert bound.max() > (1e-2 if thin < 1e-3 else 1e-3)
