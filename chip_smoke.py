@@ -34,7 +34,10 @@ Phases, one JSON line each:
      against its plain version (ops/integrate.py:_alpha_impl): one view's
      field and the running minimum over a 3-view orbit within 2e-5 (the
      JAX package's tolerance) on the 32^2 cases of
-     tests/torch_cases.integrate_cases; on the flagship cloud's
+     tests/torch_cases.integrate_cases, through the wrapper at the
+     default slice length and at one that splits the long windows, two
+     launches equal; the rejection ruling out no passing pair there, on
+     a thin-Gaussian case and at both flagship views; on the flagship cloud's
      9-per-Gaussian seed points at the frontal NVS view and the bench
      camera, bench.py's anchor (max < 2e-2, <= 0.1 % above 1e-3);
   3. main_path (serving): cycle.run_nvs_replanned at PipelineConfig() width
@@ -62,11 +65,14 @@ Phases, one JSON line each:
      seconds and counts, the CLI's wall time and peak memory;
   6. integrate_timing: the field query at that run's first-forward
      Gaussians, seed points, frontal NVS camera and caps: kernel and
-     plain times, the view's preprocess / binning / projection times
-     each alone, the agreement under the anchor (one view's field, and
-     the running minimum written in place into a seeded field), the
-     bound (the pairs whose alpha fails 1/255 charged less:
-     field_pair_work), and a traced piece of the real sweep
+     plain times (the wrapper whole, its packing and sort each alone, the
+     launch given them, the kernels' device time), the view's preprocess
+     / binning / projection times each alone, the agreement under the
+     anchor (one view's field, and the running minimum written in place
+     into a seeded field), two launches equal, the bound (the pairs the
+     kernel's rejection rules out charged less, none of them passing:
+     field_pair_work), the items' lane efficiency and heaviest item
+     (plan_shape), and a traced piece of the real sweep
      (sweep_profile: each stage's share of a view, the device's busy
      share);
   7. train_path: feedforward.train_step at PipelineConfig() width on
@@ -94,8 +100,12 @@ Phases, one JSON line each:
      Gaussians on textured surfaces at SH degree 3, rendered through the
      parsed cameras with K1 into RGBA PNGs), trained on 87 views and tested
      on 13 (llffhold 8) at PerSceneConfig() with --scene_iterations
-     (default 2,000 of the reference's 30,000) and caps planned over the
-     100,000-point init cloud with headroom; requires no overflowed step,
+     (default 2,000 of the reference's 30,000) and the caps planned by
+     the package (per_scene.fit_scene(caps="plan"), full_eval's default:
+     over the alive rows at every training camera at init and every 100
+     steps, and over the test cameras for the test renders; each plan's
+     need and caps and the planning's seconds reported); requires no
+     overflowed step and no truncated test render,
      finite parameters, a falling loss (first against last 100 steps), an
      alive count that a densification changed, a test PSNR above the init
      scene's on the same views, and exactly one K1 and one K2 launch per
@@ -173,8 +183,12 @@ GIVEN_MASK_TOL_TEXT = (
 # compare of val against 2 ln(255 opa); no exp); the mesh path's bisection
 # steps (extract_mesh's binary_steps)
 INTEGRATE_TOL = 2e-5
-OPS_PER_PAIR_INTEGRATE = 43
-OPS_PER_FAILING_INTEGRATE = 37
+OPS_PER_PAIR_INTEGRATE = 43      # csrc/integrate.cu: the full evaluation
+OPS_PER_FAILING_INTEGRATE = 26   # the pairs its rejection rules out
+# the field query's kernels: the kernel and its second pass, the plan and
+# the prep (csrc/integrate.cu, csrc/integrate_prep.cu)
+FIELD_KERNELS = ("integrate_kernel", "combine_kernel", "plan_kernel",
+                 "prep_kernel")
 MESH_STEPS = 8
 TRAIN_BATCH = 6            # images per step; 7 need ~86.5e9 bytes (PERF.md)
 TRAIN_STEPS = 5            # applied steps (tests/test_feedforward.py:64-95)
@@ -1304,8 +1318,13 @@ def integrate_vs_plain(dev, seed):
     version: one view's field and the running minimum over a 3-view orbit
     within 2e-5 on the 32^2 cases of tests/torch_cases.integrate_cases; on
     the flagship cloud, its 9-per-Gaussian seed points at the frontal NVS
-    view and at the bench camera under bench.py's anchor.  Returns the
-    largest error on the 32^2 cases."""
+    view and at the bench camera under bench.py's anchor.  On each 32^2
+    case also the wrapper at two slice lengths, one splitting the long
+    windows (field_slices: 2e-5 in both modes, two launches equal); on
+    every view here, and on torch_cases.thin_integrate_case (whose fields
+    are reported, not held: its f32 quadratic is ill-conditioned), the
+    rejection rules out no pair whose alpha passes (field_pair_work).
+    Returns the largest error on the 32^2 cases."""
     import numpy as np
     import torch
     from f3d_gaus_torch.mesh import points as MP
@@ -1337,9 +1356,28 @@ def integrate_vs_plain(dev, seed):
                "min_over_3_views": field_agreement(km, pm), "launches": n}
         err = max(res["view"]["max_abs_err"],
                   res["min_over_3_views"]["max_abs_err"])
+        # the wrapper at the default and at a splitting slice length, one
+        # view's field and the running minimum in place, twice each
+        slab, q, s = field_view(tc, cam, tp, kw)
+        res["slices"] = field_slices(slab, q, s, seed)
+        err = max([err] + [v["max_abs_err"] for v in res["slices"].values()])
         worst = max(worst, err)
+        work = field_pair_work(slab, q, s)
+        res["pair_work"] = work
         require(n == 4 and err <= INTEGRATE_TOL, res)
+        require(work["rejected_passing"] == 0,
+                f"the rejection ruled out a passing pair: {work}")
+        require(all(v["repeat_equal"] for v in res["slices"].values()), res)
         emit("integrate_vs_plain", case=name, tol=INTEGRATE_TOL, **res)
+    name, cam, cloud, pts, kw = torch_cases.thin_integrate_case(seed)
+    slab, q, s = field_view(cloud_to(cloud, dev), cam,
+                            torch.from_numpy(pts).to(dev), kw)
+    work = field_pair_work(slab, q, s)
+    require(work["rejected_passing"] == 0,
+            f"the rejection ruled out a passing pair: {work}")
+    emit("integrate_vs_plain", case=name, tol="the rejection only; the "
+         "fields reported", pair_work=work,
+         slices=field_slices(slab, q, s, seed))
     cfg = C.PipelineConfig()
     cam, cloud = torch_cases.bench_scene(np.random.default_rng(seed))
     tc = cloud_to(cloud, dev)
@@ -1360,11 +1398,62 @@ def integrate_vs_plain(dev, seed):
         require(TI.overflow_views == over, "flagship binning truncated")
         require(res["max_abs_err"] < ANCHOR_MAX_ERR
                 and res["share_above_1e3"] <= ANCHOR_SHARE, res)
+        work = field_pair_work(*field_view(tc, c, tp, caps))
+        require(work["rejected_passing"] == 0,
+                f"the rejection ruled out a passing pair: {work}")
         emit("integrate_vs_plain", case=f"flagship_256_65536_{view}",
              caps=caps, tol="anchor: max < 2e-2, <= 0.1% of points above 1e-3",
-             field_mean=float(k.mean()), **res)
+             field_mean=float(k.mean()), pair_work=work, **res)
     torch.cuda.synchronize()
     return worst
+
+
+def field_view(gauss, cam, points, kw):
+    """One view of the field query as integrate_points takes it with
+    `kw` (its caps and chunks): (the slab (v2g_mb, opa, point_list,
+    tile_start, tile_count), the query rays, the statics)."""
+    from f3d_gaus_torch.ops import integrate as TI
+
+    s = TI._statics(cam, kw.get("max_per_tile", 1024), kw.get("chunk", 128),
+                    kw.get("point_chunk", 1 << 14))
+    pre, bng, _ = TI._prepare_view(gauss, cam, 1, 0.0,
+                                   kw.get("pair_cap", 1 << 18),
+                                   s.max_per_tile)
+    slab = (pre.v2g_mb, pre.opa_coef, bng.point_list, bng.tile_start,
+            bng.tile_count)
+    return slab, TI.query_rays(points, cam, s), s
+
+
+def field_slices(slab, q, s, seed):
+    """The field kernel's wrapper on one view against the plain version,
+    at integrate.SLICE_LEN and at torch_cases.LONG_WINDOW_SLICE (which
+    splits the long windows): one view's field, and the running minimum
+    written in place into a seeded field; each launched twice, whose
+    fields must be equal."""
+    import torch
+    from f3d_gaus_torch.ops import cuda_raster
+    from f3d_gaus_torch.ops import integrate as TI
+    import torch_cases
+
+    args = (*slab, q.u, q.v, q.depth, q.tile, q.inside, s.max_per_tile)
+    plain = TI._alpha_impl(*slab, q, s)
+    seeded = torch.rand(q.u.shape[0], device=q.u.device,
+                        generator=torch.Generator(
+                            device=q.u.device).manual_seed(seed))
+    res = {}
+    for L in (TI.SLICE_LEN, torch_cases.LONG_WINDOW_SLICE):
+        one = [cuda_raster.integrate(*args, slice_len=L) for _ in range(2)]
+        mins = [seeded.clone() for _ in range(2)]
+        for m in mins:
+            require(cuda_raster.integrate(*args, out=m, slice_len=L) is m,
+                    "the running minimum was not written in place")
+        a = field_agreement(one[0], plain)
+        b = field_agreement(mins[0], torch.minimum(seeded, plain))
+        res[f"slice_{L}"] = {
+            "view": a, "running_min": b,
+            "max_abs_err": max(a["max_abs_err"], b["max_abs_err"]),
+            "repeat_equal": bool(torch.equal(*one) and torch.equal(*mins))}
+    return res
 
 
 def write_rgbd(folder, image, depth):
@@ -1460,23 +1549,26 @@ def mesh_path(args, dev, card):
 def field_pair_work(slab, q, s):
     """The (point, pair)s the field query needs at one view: `pairs`, each
     inside point against every slot of its tile's window
-    min(tile_count, max_per_tile), and `passing`, those whose alpha reaches
+    min(tile_count, max_per_tile); `passing`, those whose alpha reaches
     1/255 (integrate._pair_alpha in f32: it counts work, and PyTorch's
-    roundings may differ from the kernel's by an ulp).  Walks the windows
-    as integrate._alpha_impl does."""
+    roundings may differ from the kernel's by an ulp); `rejected`, those
+    the kernel's shortcut rules out (its f32 mirror integrate.
+    _pair_rejected on the kernel's packed rows); and `rejected_passing`,
+    pairs both rejected and passing, which must be none.  Walks the
+    windows as integrate._alpha_impl does."""
     import torch
     from f3d_gaus_torch.ops import integrate as TI
 
     v2g_mb, opa, point_list, tile_start, tile_count = slab
     P, T = v2g_mb.shape[0], tile_start.shape[0]
-    rows = torch.cat([v2g_mb, opa[:, None]], 1)
-    rows = torch.cat([rows, rows.new_zeros((1, 13))], 0)
+    table = TI._pack_rows(v2g_mb, opa)
+    rows = table[:, :13]
     order = torch.argsort(torch.where(q.inside, q.tile, T), stable=True)
     n_pts = torch.bincount(q.tile[q.inside].long(), minlength=T).tolist()
     count = torch.clamp_max(tile_count, s.max_per_tile).tolist()
     start = tile_start.tolist()
-    pairs, passing, pos = 0, torch.zeros((), dtype=torch.int64), 0
-    passing = passing.to(v2g_mb.device)
+    pairs, pos = 0, 0
+    sums = torch.zeros(3, dtype=torch.int64, device=v2g_mb.device)
     with torch.no_grad():
         for t in range(T):
             pts = order[pos:pos + n_pts[t]]
@@ -1487,10 +1579,55 @@ def field_pair_work(slab, q, s):
                 for c0 in range(0, count[t], s.chunk):
                     ids = point_list[start[t] + c0:
                                      start[t] + min(c0 + s.chunk, count[t])]
-                    alpha = TI._pair_alpha(rows[ids.long().clamp(0, P)][None],
-                                           q.u[sel], q.v[sel], q.depth[sel])
-                    passing += (alpha > 0).sum()
-    return {"pairs": pairs, "passing": int(passing)}
+                    ids = ids.long().clamp(0, P)
+                    passing = TI._pair_alpha(rows[ids][None], q.u[sel],
+                                             q.v[sel], q.depth[sel]) > 0
+                    rej = TI._pair_rejected(table[ids][None], q.u[sel],
+                                            q.v[sel])
+                    sums += torch.stack([passing.sum(), rej.sum(),
+                                         (rej & passing).sum()])
+    passing, rejected, both = sums.tolist()
+    return {"pairs": pairs, "passing": passing, "rejected": rejected,
+            "rejected_passing": both}
+
+
+def plan_shape(tile, inside, tile_count, max_per_tile, slice_len):
+    """The work of the field kernel's items at one view, first design
+    against this one: lane efficiency, the inside (point, window slot)
+    pairs over the pairs the lanes walk (blocks of 128 points, one a lane,
+    before; now warps of 32 points, skipped where empty); and the heaviest
+    item's pairs against the mean (whole windows per 128-point block
+    before; now windows cut into slices of slice_len rows per block of
+    integrate.POINTS_PER_ITEM points)."""
+    import torch
+    from f3d_gaus_torch.ops import integrate as TI
+
+    T = tile_count.shape[0]
+    n_pts = torch.bincount(tile[inside].long(), minlength=T).double()
+    window = torch.clamp_max(tile_count, max_per_tile).double()
+    pairs = float((n_pts * window).sum())
+
+    def lanes(k):
+        return pairs / max(float((torch.ceil(n_pts / k) * k * window).sum()),
+                           1.0)
+
+    def items(per, sliced):
+        blocks = torch.ceil(n_pts / per)
+        size = torch.clamp_max(n_pts, per)
+        if not sliced:
+            heavy, count = size * window, blocks
+        else:
+            slices = torch.clamp_min(torch.ceil(window / slice_len), 1)
+            heavy, count = size * torch.clamp_max(window, slice_len), \
+                blocks * slices
+        n = max(float(count.sum()), 1.0)
+        return {"items": int(n), "heaviest_pairs": float(heavy.max()),
+                "mean_pairs": pairs / n,
+                "heaviest_over_mean": float(heavy.max()) / max(pairs / n, 1)}
+    return {"lane_efficiency_first_design": lanes(128),
+            "lane_efficiency": lanes(32),
+            "first_design_items": items(128, False),
+            "items": items(TI.POINTS_PER_ITEM, True), "slice_len": slice_len}
 
 
 def sweep_profile(gauss, cams, pts, cfg, pair_cap, mpt, n_views=8):
@@ -1565,47 +1702,59 @@ def sweep_profile(gauss, cams, pts, cfg, pair_cap, mpt, n_views=8):
             "top": prof["top"]}
 
 
-def integrate_timing(mesh, args, dev, card):
-    """Phase 6: the field query at the mesh run's shape: its first-forward
-    Gaussians (read back from its gaussians.ply), its seed points, the
-    frontal NVS camera and its settled caps.  The kernel (with the
-    wrapper's sort of the points by tile) by CUDA events, its device time
-    alone by the profiler, the plain version, the same view's preprocess,
-    binning and projection each alone, the agreement under bench.py's
-    anchor in both modes (one view's field, and the running minimum written
-    in place into a seeded field), the bound from this view's data, and
-    sweep_profile: where the time of a view goes inside a sweep."""
+def frontal_field_view(out_dir, num_nvs_views, dev):
+    """The mesh run's field view in `out_dir` (cli.py's output of one
+    image): (cfg, its Gaussians on the card read back from gaussians.ply,
+    the NVS cameras, the frontal NVS camera, the Delaunay seed points on
+    the card)."""
     import numpy as np
     import torch
-    from f3d_gaus_torch.core import gaussians as G
     from f3d_gaus_torch.io import ply
     from f3d_gaus_torch.mesh import points as MP
-    from f3d_gaus_torch.ops import binning as B
-    from f3d_gaus_torch.ops import cuda_raster
-    from f3d_gaus_torch.ops import integrate as TI
-    from f3d_gaus_torch.ops import rasterize as R
     from f3d_gaus_torch.pipeline import config as C
     from f3d_gaus_torch.pipeline import cycle
     from f3d_gaus_torch.pipeline import dataset as D
 
-    cfg = dataclasses.replace(C.PipelineConfig(),
-                              num_nvs_views=args.num_nvs_views)
-    st = mesh["stats"]
-    pair_cap, mpt = st["pair_cap"], st["max_per_tile"]
-    g = ply.read_gaussian_ply(os.path.join(mesh["out_dir"], "gaussians.ply"))
+    cfg = dataclasses.replace(C.PipelineConfig(), num_nvs_views=num_nvs_views)
+    g = ply.read_gaussian_ply(os.path.join(out_dir, "gaussians.ply"))
     nvs = cycle.nvs_cameras(cfg, D.canonical_cameras(cfg).inverse_first_camera)
     pts, _ = MP.tetra_points(g["xyz"], g["scaling"], g["rotation"],
                              nvs.world_view, cfg.fov_deg,
                              resolution=cfg.resolution)
-    require(len(pts) == st["counts"]["seed_points"],
-            f"{len(pts)} seed points, the run had {st['counts']}")
     res = cfg.resolution
     cam = nvs.camera(0, res, res, cfg.tan_fov, cfg.tan_fov)
     shs = np.concatenate([g["f_dc"], g["f_rest"]], 1)
     gauss = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
         g["xyz"], g["scaling"], g["rotation"], g["opacity"], shs))
+    return cfg, gauss, nvs, cam, torch.from_numpy(pts).to(dev)
+
+
+def integrate_timing(mesh, args, dev, card):
+    """Phase 6: the field query at the mesh run's shape: its first-forward
+    Gaussians (read back from its gaussians.ply), its seed points, the
+    frontal NVS camera and its settled caps.  The kernel (with the
+    wrapper's packing and sort, and without them) by CUDA events, its
+    device time alone by the profiler, the plain version, the same view's
+    preprocess,
+    binning and projection each alone, the agreement under bench.py's
+    anchor in both modes (one view's field, and the running minimum written
+    in place into a seeded field), the bound from this view's data, and
+    sweep_profile: where the time of a view goes inside a sweep."""
+    import torch
+    from f3d_gaus_torch.core import gaussians as G
+    from f3d_gaus_torch.ops import binning as B
+    from f3d_gaus_torch.ops import cuda_raster
+    from f3d_gaus_torch.ops import integrate as TI
+    from f3d_gaus_torch.ops import rasterize as R
+
+    st = mesh["stats"]
+    pair_cap, mpt = st["pair_cap"], st["max_per_tile"]
+    cfg, gauss, nvs, cam, tp = frontal_field_view(mesh["out_dir"],
+                                                  args.num_nvs_views, dev)
+    require(len(tp) == st["counts"]["seed_points"],
+            f"{len(tp)} seed points, the run had {st['counts']}")
+    res = cfg.resolution
     s = TI._statics(cam, mpt, cfg.chunk, 1 << 14)
-    tp = torch.from_numpy(pts).to(dev)
     preprocess_ms = time_ms(lambda: G.preprocess(*gauss, cfg.max_sh_degree,
                                                  cam, 0.0), 5)
     pre, bng, trunc = TI._prepare_view(gauss, cam, cfg.max_sh_degree, 0.0,
@@ -1622,6 +1771,34 @@ def integrate_timing(mesh, args, dev, card):
     ms = time_ms(lambda: cuda_raster.integrate(*kargs), TIMED_LAUNCHES)
     prof = device_profile(lambda: cuda_raster.integrate(*kargs))
     k = cuda_raster.integrate(*kargs)
+    # the wrapper's steps, each alone: the prep kernel (rows and keys), the
+    # sort, and the launch given them (plan kernel, field, second pass);
+    # the prep and the plan held against their plain versions
+    T = bng.tile_start.shape[0]
+    prep = (pre.v2g_mb, pre.opa_coef, q.u, q.v, q.tile, q.inside, T)
+    prep_ms = time_ms(lambda: cuda_raster.integrate_prep(*prep),
+                      TIMED_LAUNCHES)
+    table, keys = cuda_raster.integrate_prep(*prep)
+    sort_ms = time_ms(lambda: torch.sort(keys), TIMED_LAUNCHES)
+    keys_s, perm = torch.sort(keys)
+    plan = torch.empty(3 * (T + 2) + 1, dtype=torch.int32, device=dev)
+    launch = (table, keys_s, perm, bng.point_list, bng.tile_start,
+              bng.tile_count, q.u, q.v, q.depth, mpt, TI.SLICE_LEN)
+    launch_ms = time_ms(lambda: cuda_raster._integrate_launch(*launch),
+                        TIMED_LAUNCHES)
+    require(torch.equal(cuda_raster._integrate_launch(*launch, plan=plan), k)
+            and torch.equal(cuda_raster.integrate(*kargs), k),
+            "two launches on the same inputs differ")
+    twin = TI._integrate_items(q.tile, q.inside, q.u, q.v, bng.tile_count,
+                               mpt, TI.SLICE_LEN)
+    require(torch.equal(keys, TI._point_keys(q.tile, q.inside, q.u, q.v, T))
+            and torch.equal(plan[:-1], torch.cat([
+                twin.seg_start, twin.item_start, twin.part_start])),
+            "the prep or plan kernel differs from its plain version")
+    rows_err = float((table - TI._pack_rows(pre.v2g_mb, pre.opa_coef)
+                      ).abs().nan_to_num().max())
+    require(rows_err <= 1e-5 * float(table[:, 13].abs().nan_to_num(
+        posinf=0, neginf=0).max()), f"row table off by {rows_err}")
     plain = []
     plain_ms = time_ms(lambda: plain.append(TI._alpha_impl(*slab, q, s)), 1,
                        warmup=0)
@@ -1646,9 +1823,11 @@ def integrate_timing(mesh, args, dev, card):
     # the 13-float row of each Gaussian in them (tiles that hold points),
     # and the tiles' offsets, counts and segment starts
     work = field_pair_work(slab, q, s)
+    require(work["rejected_passing"] == 0,
+            f"the rejection ruled out a passing pair: {work}")
     pairs = work["pairs"]
-    ops = (work["passing"] * OPS_PER_PAIR_INTEGRATE
-           + (pairs - work["passing"]) * OPS_PER_FAILING_INTEGRATE)
+    ops = (work["rejected"] * OPS_PER_FAILING_INTEGRATE
+           + (pairs - work["rejected"]) * OPS_PER_PAIR_INTEGRATE)
     tiles_in = q.tile.long()[q.inside]
     occupied = torch.unique(tiles_in)
     gids, valid, _ = R._gather_windows(pre.opa_coef[:, None], bng.point_list,
@@ -1659,15 +1838,29 @@ def integrate_timing(mesh, args, dev, card):
     T = bng.tile_start.shape[0]
     nbytes = Q * 5 * 4 + n_ids * 4 + uniq * 13 * 4 + (2 * T + 2 * (T + 2)) * 4
     kernel_us = sum(r["device_us"] for r in prof["top"]
-                    if "integrate_kernel" in r["op"])
+                    if any(n in r["op"] for n in FIELD_KERNELS))
+    require(kernel_us > 0, f"no field kernel in the profile {prof['top']}")
     sweep = sweep_profile(gauss, nvs, tp, cfg, pair_cap, mpt)
     return dict(P=int(gauss[0].shape[0]), seed_points=Q,
                 inside=int(q.inside.sum()),
                 occupied_tiles=int(occupied.numel()),
                 caps={"pair_cap": pair_cap, "max_per_tile": mpt},
                 pairs=pairs, passing_pairs=work["passing"],
+                rejected_pairs=work["rejected"],
                 failing_share=1 - work["passing"] / max(pairs, 1),
-                ms=ms, kernel_device_ms=kernel_us / 1e3,
+                rejected_share=work["rejected"] / max(pairs, 1),
+                plan_shape=plan_shape(q.tile, q.inside, bng.tile_count, mpt,
+                                      TI.SLICE_LEN),
+                split_tiles=int(((twin.item_start[1:] - twin.item_start[:-1])
+                                 > torch.ceil((twin.seg_start[1:]
+                                               - twin.seg_start[:-1])
+                                              / TI.POINTS_PER_ITEM)).sum()),
+                ms=ms, ms_without_sort=launch_ms, prep_ms=prep_ms,
+                sort_ms=sort_ms, kernel_device_ms=kernel_us / 1e3,
+                device_ms_by_kernel={
+                    next((n for n in FIELD_KERNELS if n in r["op"]),
+                         r["op"][:60]): r["device_us"] / 1e3
+                    for r in prof["top"]},
                 plain_ms=plain_ms, alone_ms={
                     "preprocess": preprocess_ms, "binning": binning_ms,
                     "query_rays": query_rays_ms},
@@ -1686,11 +1879,8 @@ SCENE_RADIUS = 4.03
 SCENE_GT = 200_000          # ground-truth Gaussians on the surfaces
 SCENE_INIT = 100_000        # read_blender_scene's random init cloud
 SCENE_MIN_ITERS = 1_100     # past the first SH band and 6 densifications
-# caps over the init cloud's largest planned render, room for what the
-# densifications bring (on the H100 the fitted scene needed 0.27x the pairs
-# and 1.19x the fullest tile of the init cloud's largest render; PERF.md)
-SCENE_PAIR_HEADROOM = 4.0
-SCENE_TILE_HEADROOM = 4.0
+# fit_scene's timed stages (with planned caps)
+FIT_STAGES = ("init_s", "steps_s", "surgery_s", "plan_s")
 SCENE_TIMED_STEPS = 10      # steps split by CUDA events after the fit
 
 
@@ -1820,24 +2010,6 @@ def write_scene(root, rng, dev):
                 alpha_mean)), "write_s": time.perf_counter() - t0}
 
 
-def plan_scene_caps(data, dev):
-    """Caps for the fit: rasterize.plan_caps (margin 1) over the init
-    cloud's alive rows at every training camera, the largest pair count
-    and per-tile occupancy, times the headroom."""
-    from f3d_gaus_torch.full_eval import _split
-    from f3d_gaus_torch.ops import binning as B
-    from f3d_gaus_torch.train import per_scene as PS
-
-    init = PS.init_scene(data.points, data.colors, PS.PerSceneConfig(),
-                         device=dev)
-    planned = needed_caps(init, [sc.camera for sc in
-                                 _split(data.cameras, True)[0]])
-    pair_cap, mpt = planned["pair_cap"], planned["max_per_tile"]
-    caps = {"pair_cap": B.suggest_pair_cap(int(pair_cap * SCENE_PAIR_HEADROOM)),
-            "max_per_tile": -(-int(mpt * SCENE_TILE_HEADROOM) // 256) * 256}
-    return planned, caps
-
-
 def scene_kernel_inputs(scene, cam, cfg):
     """rasterize.prepare of the trained scene at one camera, as the test
     renders take it (SH degree cfg.sh_degree, dead rows culled)."""
@@ -1890,10 +2062,9 @@ def scene_path(args, dev, card):
     knn.mean_dist3(pts)
     torch.cuda.synchronize()
     knn_s = time.perf_counter() - t0
-    planned, caps = plan_scene_caps(data, dev)
-    # the reference's defaults but for the iterations and the caps
-    cfg = PS.PerSceneConfig()._replace(iterations=args.scene_iterations,
-                                       **caps)
+    # the reference's defaults but for the iterations; full_eval plans the
+    # caps (fit_scene(caps="plan"))
+    cfg = PS.PerSceneConfig()._replace(iterations=args.scene_iterations)
     train_cams, test_cams = FE._split(data.cameras, True)
 
     # the fit's scene and history, taken from full_eval's own call
@@ -1924,6 +2095,8 @@ def scene_path(args, dev, card):
     peak = torch.cuda.max_memory_allocated()
     scene, hist, timings = fits[0]
     summary = agg["scenes"][0]
+    caps = {k: hist["caps"][-1][k] for k in ("pair_cap", "max_per_tile")}
+    cfg = cfg._replace(**caps)
 
     n_it, n_test = cfg.iterations, len(test_cams)
     loss, w = hist["step_loss"], min(100, n_it // 2)
@@ -1967,7 +2140,7 @@ def scene_path(args, dev, card):
     step_ms["step"] = float(np.median([sum(t.values()) for t in split]))
 
     # the caps the fitted scene needs at the training cameras
-    need = needed_caps(scene, [sc.camera for sc in train_cams])
+    need = PS.needed_caps(scene, [sc.camera for sc in train_cams], cfg)
     emit("scene_path", card=card, config="PerSceneConfig()",
          reduced={"iterations": f"{n_it} of the reference's 30,000",
                   "opacity_reset": "the first (iteration 3,000) is not "
@@ -1977,12 +2150,14 @@ def scene_path(args, dev, card):
                 "test": n_test, "resolution": SCENE_RES,
                 "init_points": SCENE_INIT, "sh_degree": cfg.sh_degree,
                 "extent": data.extent},
-         caps_planned_init=planned, caps=caps,
+         caps_plans=hist["caps"], caps_last=caps,
          caps_needed_trained=need,
+         plan_s=summary["plan_s"], plan_share_of_steps=(
+             timings["plan_s"] / timings["steps_s"]),
          stage_s={"scene_load_alone": load_s, **{
-             k: timings[k] for k in ("init_s", "steps_s", "surgery_s")},
+             k: timings[k] for k in FIT_STAGES},
              "test_render_and_metrics": wall_s - sum(
-                 timings[k] for k in ("init_s", "steps_s", "surgery_s"))},
+                 timings[k] for k in FIT_STAGES)},
          full_eval_wall_s=wall_s, knn_s=knn_s, knn_points=SCENE_INIT,
          mean_step_ms=timings["steps_s"] / n_it * 1e3,
          median_step_ms_split=step_ms, timed_steps=SCENE_TIMED_STEPS,
@@ -1991,6 +2166,7 @@ def scene_path(args, dev, card):
          test_psnr=summary["test_psnr"], test_ssim=summary["test_ssim"],
          init_psnr=init_m["psnr"], init_ssim=init_m["ssim"],
          overflow_steps=hist["overflow_steps"],
+         overflow_test_renders=summary["overflow_test_renders"],
          final_gaussians=summary["final_gaussians"],
          peak_allocated_bytes=peak,
          launches={"raster_fwd": launches[0], "raster_bwd": launches[1],
@@ -1998,7 +2174,12 @@ def scene_path(args, dev, card):
     require(launches == (n_it + n_test, n_it, 2 * n_it + n_test),
             f"per-scene launches K1 / K2 / decision {launches}")
     require(hist["overflow_steps"] == 0 and summary["overflow_steps"] == 0,
-            f"{hist['overflow_steps']} steps truncated by the caps {caps}")
+            f"{hist['overflow_steps']} steps truncated by the caps "
+            f"{hist['caps']}")
+    require(summary["overflow_test_renders"] == 0,
+            f"{summary['overflow_test_renders']} test renders truncated")
+    require(len(hist["caps"]) == 1 + (n_it - 1) // cfg.densification_interval,
+            f"{len(hist['caps'])} cap plans in {n_it} iterations")
     require(all(bool(torch.isfinite(t).all()) for t in scene[:-1]),
             "non-finite parameters")
     require(last < first, f"loss {first} -> {last}")
@@ -2025,20 +2206,6 @@ def scene_path(args, dev, card):
     emit("kernel_timing_bwd", card=card, shape="per_scene", **bwd)
     return launches, fwd, bwd
 
-
-
-def needed_caps(scene, cams):
-    """The largest exact pair count and per-tile occupancy of a scene's
-    alive rows over `cams` (rasterize.plan_caps, margin 1, no buckets)."""
-    from f3d_gaus_torch.ops import rasterize as R
-    from f3d_gaus_torch.train import per_scene as PS
-
-    g = PS.activated(scene)
-    args = [g[k][scene.alive] for k in ("xyz", "scaling", "rotation",
-                                        "opacity")]
-    caps = [R.plan_caps(*args, cam, margin=1.0, pair_bucket=1, tile_bucket=1)
-            for cam in cams]
-    return {k: max(c[k] for c in caps) for k in ("pair_cap", "max_per_tile")}
 
 
 def main(argv=None) -> int:
@@ -2174,6 +2341,8 @@ def main(argv=None) -> int:
     }, {
         "name": "integrate", "route": "cuda",
         "source": csrc + "integrate.cu",
+        "sources": [csrc + "integrate.cu", csrc + "integrate_prep.cu",
+                    csrc + "gof_pair.cuh"],
         "replaces": "f3d_gaus_tpu/ops/integrate.py:82",
         "launches": mesh["launches"]["integrate"],
         "launches_by_path": {"serving": 0, "training": 0,
@@ -2189,16 +2358,21 @@ def main(argv=None) -> int:
               "_integrate_chunk (:104); the mesh path's frontal NVS view, "
               f"P={field['P']}, {field['seed_points']} seed points, "
               f"{mesh['n_views']} x (1 + {MESH_STEPS}) launches per mesh; "
-              "ms includes the wrapper's sort of the points by tile "
-              "(kernel_device_ms: the kernel alone); max_abs_err at that "
+              "ms includes the wrapper's row packing and its sort of the "
+              "points into the item plan (ms_without_sort: the launch given "
+              "them; kernel_device_ms: the kernel and its second pass on "
+              "the device's clock); max_abs_err at that "
               "view against the plain version, one view's field and the "
               "running minimum into a seeded field (on the 32^2 cases "
-              f"{integrate_small_err:.3g}, tolerance {INTEGRATE_TOL}); "
-              f"bound_ms charges the pairs whose alpha fails 1/255 "
-              f"{OPS_PER_FAILING_INTEGRATE} operations, the rest "
-              f"{OPS_PER_PAIR_INTEGRATE}",
+              f"{integrate_small_err:.3g} at two slice lengths, tolerance "
+              f"{INTEGRATE_TOL}); bound_ms charges the pairs the kernel's "
+              f"rejection rules out {OPS_PER_FAILING_INTEGRATE} operations, "
+              f"the rest {OPS_PER_PAIR_INTEGRATE}",
         "kernel_device_ms": field["kernel_device_ms"],
+        "ms_without_sort": field["ms_without_sort"],
         "pairs": field["pairs"], "failing_share": field["failing_share"],
+        "rejected_share": field["rejected_share"],
+        "lane_efficiency": field["plan_shape"]["lane_efficiency"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

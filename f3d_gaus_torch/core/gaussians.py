@@ -30,7 +30,11 @@ def _scalar_over(num: float, den: torch.Tensor) -> torch.Tensor:
 
 
 def _mat(m) -> list:
-    """A float32 camera matrix as nested Python floats (exact f32 values)."""
+    """A float32 camera matrix as nested Python floats (exact f32 values);
+    a (V, 4, 4) float32 tensor of V cameras as nested (V, 1) tensors,
+    which broadcast over the Gaussians to the same f32 arithmetic."""
+    if torch.is_tensor(m):
+        return [[m[:, i, j, None] for j in range(4)] for i in range(4)]
     return np.asarray(m, np.float32).astype(np.float64).tolist()
 
 
@@ -200,6 +204,30 @@ class Preprocessed(NamedTuple):
     v2g_mb: torch.Tensor        # (P, 12) stable packing: M.reshape(9) ++ b
     radii: torch.Tensor         # (P,)  int32 screen radius (0 = culled)
     valid: torch.Tensor         # (P,)  bool — survives frustum/extent culling
+
+
+def screen_footprints(means, scales, quats, world_views, full_projs,
+                      camera: "Camera", kernel_size: float = 0.0,
+                      scale_modifier: float = 1.0):
+    """The means2d (V, P, 2) and radii (V, P) int32 that `preprocess` gives
+    at V cameras at once, bit for bit: its expressions with the (V, 4, 4)
+    world_views and full_projs broadcast over the Gaussians; `camera`
+    gives the size and field of view all V share.  No colours and no ray
+    quadratic: what sizing the binning needs."""
+    dev = means.device
+    wv = torch.as_tensor(np.asarray(world_views, np.float32), device=dev)
+    fp = torch.as_tensor(np.asarray(full_projs, np.float32), device=dev)
+    p_view, p_ndc = project_points(means, wv, fp)
+    cov3d6 = build_cov3d(scales, quats, scale_modifier)
+    cov2d, _ = cov2d_and_coef(means, cov3d6, wv, camera.focal_x,
+                              camera.focal_y, camera.tan_fovx,
+                              camera.tan_fovy, kernel_size)
+    _, radius, det = screen_extent(cov2d)
+    valid = (p_view[..., 2] > NEAR_PLANE) & (det != 0.0)
+    radii = torch.where(valid, radius, torch.zeros_like(radius)).to(torch.int32)
+    mean2d = torch.stack([ndc_to_pix(p_ndc[..., 0], camera.width),
+                          ndc_to_pix(p_ndc[..., 1], camera.height)], -1)
+    return mean2d, radii
 
 
 def preprocess(means, scales, quats, opacities, shs, sh_degree: int, camera,

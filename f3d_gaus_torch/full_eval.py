@@ -15,12 +15,21 @@ and writes per-split and per-scene results.json plus full_eval.json, the
 aggregate.  Runs on the card unless `device` (`--device`) says otherwise:
 
     python -m f3d_gaus_torch.full_eval --scenes <dir1> <dir2> --output out/
+        [--iterations N] [--fixed_caps] [--device cpu]
+
+The renderer's caps are planned from the scene by default (per_scene.
+fit_scene(caps="plan"): at init, every densification_interval steps and
+for the renders of each split); `--fixed_caps` keeps the config's, the
+JAX package's behaviour, which truncates renders at 800^2.  Truncated
+training steps and renders are counted in the summary (`overflow_steps`,
+`overflow_<split>_renders`), where the JAX package scores them silently.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import time
 
 import numpy as np
 import torch
@@ -63,10 +72,13 @@ def run_scene(scene_dir: str, out_dir: str,
               eval_split: bool = True, llffhold: int = 8,
               render_train: bool = False, seed: int = 0,
               lpips_weights: str | None = None,
-              n_init_points: int = 100_000, device=None) -> dict:
-    """Train + render + metric one scene on `device` (default `cuda`).
-    Returns the summary dict; its `overflow_steps` counts the training
-    steps whose render the caps truncated."""
+              n_init_points: int = 100_000, device=None,
+              caps: str = "plan") -> dict:
+    """Train + render + metric one scene on `device` (default `cuda`),
+    with the caps planned (`caps="plan"`) or the config's ("fixed").
+    Returns the summary dict: `overflow_steps` counts the training steps
+    whose render the caps truncated, `overflow_<split>_renders` the
+    truncated renders of each split, `plan_s` the planning's seconds."""
     dev = resolve_device(device)
     if lpips_weights:
         raise NotImplementedError(eval_mod.LPIPS_MISSING)
@@ -80,23 +92,32 @@ def run_scene(scene_dir: str, out_dir: str,
                         for c in train_cams])
     scene, hist = per_scene.fit_scene(
         [c.camera for c in train_cams], targets, data.points, data.colors,
-        cfg, extent=data.extent, seed=seed, device=dev)
+        cfg, extent=data.extent, seed=seed, device=dev, caps=caps)
 
     os.makedirs(out_dir, exist_ok=True)
     sets = {"test": test_cams}
     if render_train:
         sets["train"] = train_cams
-    results = {}
+    results, truncated, plan_s = {}, {}, hist["plan_s"]
     bg = torch.zeros(3, device=dev)
     for split, cams in sets.items():
         rdir = os.path.join(out_dir, split, "renders")
         gdir = os.path.join(out_dir, split, "gt")
         os.makedirs(rdir, exist_ok=True)
         os.makedirs(gdir, exist_ok=True)
+        render_cfg = cfg
+        if caps == "plan":
+            t0 = time.perf_counter()
+            render_cfg = cfg._replace(**per_scene.plan_caps(
+                per_scene.needed_caps(scene, [sc.camera for sc in cams],
+                                      cfg), cfg))
+            plan_s += time.perf_counter() - t0
+        truncated[split] = 0
         for sc in cams:
             with torch.no_grad():
-                out = per_scene.render_scene(scene, sc.camera, cfg, bg,
-                                             cfg.sh_degree)
+                out = per_scene.render_scene(scene, sc.camera, render_cfg,
+                                             bg, cfg.sh_degree)
+            truncated[split] += int(out["overflow"])
             name = os.path.splitext(sc.name)[0] + ".png"
             _save_png(os.path.join(rdir, name), out["render"].cpu().numpy())
             _save_png(os.path.join(gdir, name),
@@ -109,6 +130,8 @@ def run_scene(scene_dir: str, out_dir: str,
         "iterations": cfg.iterations,
         "final_gaussians": int(scene.alive.sum()),
         "overflow_steps": hist["overflow_steps"],
+        **{f"overflow_{s}_renders": n for s, n in truncated.items()},
+        "plan_s": plan_s,
         **{f"{s}_{k}": v for s, r in results.items()
            for k, v in r["mean"].items()},
     }
@@ -121,9 +144,10 @@ def full_eval(scene_dirs, output_root: str,
               cfg: per_scene.PerSceneConfig | None = None,
               eval_split: bool = True, render_train: bool = False,
               lpips_weights: str | None = None,
-              n_init_points: int = 100_000, device=None) -> dict:
+              n_init_points: int = 100_000, device=None,
+              caps: str = "plan") -> dict:
     """Orchestrate every scene and aggregate (full_eval.py semantics), on
-    `device` (default `cuda`)."""
+    `device` (default `cuda`), the caps as run_scene's."""
     dev = resolve_device(device)
     summaries = []
     for sd in scene_dirs:
@@ -132,7 +156,7 @@ def full_eval(scene_dirs, output_root: str,
             sd, os.path.join(output_root, name), cfg=cfg,
             eval_split=eval_split, render_train=render_train,
             lpips_weights=lpips_weights, n_init_points=n_init_points,
-            device=dev))
+            device=dev, caps=caps))
         print(json.dumps(summaries[-1]))
     keys = [k for k in summaries[0] if k.endswith(("psnr", "ssim", "lpips"))]
     agg = {"scenes": summaries,
@@ -154,6 +178,10 @@ def main(argv=None):
     ap.add_argument("--render_train", action="store_true")
     ap.add_argument("--lpips_weights", default=None,
                     help="LPIPS is not ported yet: any value raises")
+    ap.add_argument("--fixed_caps", action="store_true",
+                    help="render at PerSceneConfig's caps (the JAX "
+                         "package's; they truncate renders at 800x800) "
+                         "instead of planning them from the scene")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
@@ -164,7 +192,8 @@ def main(argv=None):
     agg = full_eval(args.scenes, args.output, cfg=cfg,
                     eval_split=not args.no_eval_split,
                     render_train=args.render_train,
-                    lpips_weights=args.lpips_weights, device=args.device)
+                    lpips_weights=args.lpips_weights, device=args.device,
+                    caps="fixed" if args.fixed_caps else "plan")
     print(json.dumps(agg["mean"]))
 
 

@@ -147,6 +147,31 @@ def count_pairs(means2d, radii, width: int, height: int) -> torch.Tensor:
     return torch.sum(count.to(torch.int64))
 
 
+def tile_occupancy(means2d, radii, width: int, height: int) -> torch.Tensor:
+    """(..., num_tiles) int32: how many Gaussians each tile holds, the
+    tile_count bin_gaussians would return, without binning; means2d
+    (..., P, 2) and radii (..., P), any leading dims (one set per view).
+    Each Gaussian's tile rectangle is added to a (grid_y + 1, grid_x + 1)
+    difference grid by its four corners, then summed along both axes."""
+    grid_x = (width + BLOCK - 1) // BLOCK
+    grid_y = (height + BLOCK - 1) // BLOCK
+    lead = radii.shape[:-1]
+    xmin, ymin, xmax, ymax, count = tile_rects(means2d.detach(),
+                                               radii.detach(), width, height)
+    w = (count > 0).to(torch.int32).reshape(-1)
+    cells = (grid_y + 1) * (grid_x + 1)
+    views = torch.arange(radii[..., 0].numel(), device=radii.device)
+    base = (views * cells).reshape(*lead, 1)
+    diff = torch.zeros(views.numel() * cells, dtype=torch.int32,
+                       device=radii.device)
+    for ys, xs, sign in ((ymin, xmin, 1), (ymin, xmax, -1), (ymax, xmin, -1),
+                         (ymax, xmax, 1)):
+        diff.index_add_(0, (base + ys * (grid_x + 1) + xs).reshape(-1),
+                        sign * w)
+    occ = diff.reshape(*lead, grid_y + 1, grid_x + 1).cumsum(-2).cumsum(-1)
+    return occ[..., :grid_y, :grid_x].reshape(*lead, -1).to(torch.int32)
+
+
 def suggest_pair_cap(n: int, bucket: int = 1 << 16) -> int:
     """Round a pair count up to a bucket."""
     n = max(int(n), 1)

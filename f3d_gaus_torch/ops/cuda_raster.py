@@ -2,7 +2,8 @@
 kernels csrc/gof_decide.cu, csrc/raster_fwd.cu and csrc/raster_bwd.cu,
 which all include csrc/gof_pair.cuh (counterpart of
 f3d_gaus_tpu/ops/pallas_raster.py), and of the opacity-field query
-csrc/integrate.cu (counterpart of f3d_gaus_tpu/ops/integrate.py).
+csrc/integrate_prep.cu + csrc/integrate.cu (counterpart of
+f3d_gaus_tpu/ops/integrate.py).
 
 Each kernel source is compiled with nvcc for sm_90a into a shared library
 with a plain C interface at the first CUDA call (all at once, one nvcc
@@ -36,9 +37,11 @@ from . import rasterize as R
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {"decide": CSRC / "gof_decide.cu", "fwd": CSRC / "raster_fwd.cu",
-           "bwd": CSRC / "raster_bwd.cu", "integrate": CSRC / "integrate.cu"}
+           "bwd": CSRC / "raster_bwd.cu", "integrate": CSRC / "integrate.cu",
+           "integrate_prep": CSRC / "integrate_prep.cu"}
 ENTRY = {"decide": "f3d_gof_decide", "fwd": "f3d_raster_fwd",
-         "bwd": "f3d_raster_bwd", "integrate": "f3d_integrate"}
+         "bwd": "f3d_raster_bwd", "integrate": "f3d_integrate",
+         "integrate_prep": "f3d_integrate_prep"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -87,15 +90,17 @@ _ARGTYPES = {
             _P, _P, _P, _P, _P, _P, _P, _P],
     "bwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _P, _P,
             _P, _P, _P, _P, _P, _P, _P],
-    "integrate": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                  _P, _I, _I, _P],
+    "integrate": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P,
+                  _P, _P, _P, _P, _I, _I, _I, _P],
+    "integrate_prep": [_I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                       _P],
 }
 
 
 def load(rebuild: bool = False) -> dict:
     """Build (once per build_key, or anew with `rebuild`) and load the
     kernel libraries: {'decide': CDLL, 'fwd': CDLL, 'bwd': CDLL,
-    'integrate': CDLL}.  The nvcc
+    'integrate': CDLL, 'integrate_prep': CDLL}.  The nvcc
     runs go in parallel; any failure raises with its log."""
     global _libs, build_log
     if _libs is not None and not rebuild:
@@ -282,11 +287,9 @@ def composite_bwd(allf, extra, point_list, tile_start, tile_count, bg,
     return d_feat, d_stats
 
 
-INTEGRATE_POINTS_PER_CTA = 128     # integrate.cu:kThreads
-
-
 def integrate(v2g_mb, opa, point_list, tile_start, tile_count, u, v, depth,
-              tile, inside, max_per_tile: int, out=None):
+              tile, inside, max_per_tile: int, out=None,
+              slice_len: int | None = None):
     """The field query of one view in the kernel: per query point, 1 - the
     product of (1 - alpha) over its tile's window (integrate.py:
     _alpha_impl's contract), 0 for points not `inside`.  v2g_mb (P, 12),
@@ -295,10 +298,14 @@ def integrate(v2g_mb, opa, point_list, tile_start, tile_count, u, v, depth,
     Returns a new (Q,) tensor, or with `out` ((Q,) f32) writes
     min(out, alpha) into it and returns it.
 
-    The points are sorted by tile here (torch.sort); each tile's points
-    are cut into CTAs of INTEGRATE_POINTS_PER_CTA, the points outside
-    forming one last segment with an empty window."""
+    One launch packs the rows (with the rejection's per-row threshold)
+    and the points' sort keys (integrate_prep), torch.sort orders the
+    points by key, and one more launches the plan kernel (blocks of 512
+    points, windows cut into slices of `slice_len` rows, default
+    integrate.SLICE_LEN; integrate._integrate_items is its plain version),
+    the field and its second pass for the split windows.  No host sync."""
     global launches_integrate
+    from . import integrate as TI
     P = v2g_mb.shape[0]
     _check("v2g_mb", v2g_mb, torch.float32, (P, 12))
     _check("opa", opa, torch.float32, (P,))
@@ -316,6 +323,9 @@ def integrate(v2g_mb, opa, point_list, tile_start, tile_count, u, v, depth,
     _check("inside", inside, torch.bool, (Q,))
     if out is not None:
         _check("out", out, torch.float32, (Q,))
+    slice_len = TI.SLICE_LEN if slice_len is None else int(slice_len)
+    if slice_len <= 0:
+        raise ValueError(f"slice_len must be positive, got {slice_len}")
     dev = v2g_mb.device
     for name, t in (("opa", opa), ("point_list", point_list),
                     ("tile_start", tile_start), ("tile_count", tile_count),
@@ -324,25 +334,61 @@ def integrate(v2g_mb, opa, point_list, tile_start, tile_count, u, v, depth,
         if t is not None and t.device != dev:
             raise ValueError(f"{name} is on {t.device}, v2g_mb on {dev}")
 
-    K = INTEGRATE_POINTS_PER_CTA
-    key, perm = torch.sort(torch.where(inside, tile, T))
-    seg_start = torch.searchsorted(
-        key, torch.arange(T + 2, dtype=key.dtype, device=dev)).to(torch.int32)
-    blocks = (seg_start[1:] - seg_start[:-1] + K - 1) // K
-    item_start = torch.zeros(T + 2, dtype=torch.int32, device=dev)
-    item_start[1:] = torch.cumsum(blocks, 0)
-    perm = perm.to(torch.int32)
+    rows, keys = integrate_prep(v2g_mb, opa, u, v, tile, inside, T)
+    keys, perm = torch.sort(keys)
+    out = _integrate_launch(rows, keys, perm, point_list, tile_start,
+                            tile_count, u, v, depth, max_per_tile, slice_len,
+                            out)
+    launches_integrate += 1
+    return out
+
+
+def integrate_prep(v2g_mb, opa, u, v, tile, inside, num_tiles: int):
+    """The field query's row table and sort keys in one launch of
+    csrc/integrate_prep.cu (the plain versions integrate._pack_rows and
+    _point_keys): ((P + 1, 16) f32, (Q,) int32).  On checked tensors."""
+    from . import integrate as TI
+    dev, P, Q = v2g_mb.device, v2g_mb.shape[0], u.shape[0]
+    rows = torch.empty((P + 1, 16), dtype=torch.float32, device=dev)
+    keys = torch.empty(Q, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = load()["integrate_prep"].f3d_integrate_prep(
+        _device_index(dev), v2g_mb.data_ptr(), opa.data_ptr(), P,
+        u.data_ptr(), v.data_ptr(), tile.data_ptr(), inside.data_ptr(), Q,
+        num_tiles, TI.key_bits(num_tiles), rows.data_ptr(), keys.data_ptr(),
+        stream)
+    if err != 0:
+        raise RuntimeError(
+            f"integrate_prep kernel launch failed: CUDA error {err}")
+    return rows, keys
+
+
+def _integrate_launch(rows, keys, perm, point_list, tile_start, tile_count,
+                      u, v, depth, max_per_tile: int, slice_len: int,
+                      out=None, plan=None):
+    """The launch of `integrate` given its row table and its points' sorted
+    keys and order (the wrapper's steps before it): the plan kernel, the
+    field and the split windows' second pass, on checked tensors; counted
+    by the wrapper, not here.  `plan`, when given, a (3 (T + 2) + 1,)
+    int32 tensor, receives the plan's segment, item and partial starts
+    (and the kernel's item counter)."""
+    from . import integrate as TI
+    dev, Q, T = rows.device, u.shape[0], tile_start.shape[0]
+    max_items, max_parts = TI.plan_bounds(Q, T, max_per_tile, slice_len)
+    part = torch.empty(max(max_parts, 1), dtype=torch.float32, device=dev)
+    if plan is None:
+        plan = torch.empty(3 * (T + 2) + 1, dtype=torch.int32, device=dev)
     running_min = out is not None
     if out is None:
         out = torch.empty(Q, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = load()["integrate"].f3d_integrate(
-        _device_index(dev), v2g_mb.data_ptr(), opa.data_ptr(),
-        point_list.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
-        T, P, max_per_tile, perm.data_ptr(), seg_start.data_ptr(),
-        item_start.data_ptr(), u.data_ptr(), v.data_ptr(), depth.data_ptr(),
-        out.data_ptr(), int(running_min), Q // K + T + 1, stream)
+        _device_index(dev), rows.data_ptr(), point_list.data_ptr(),
+        tile_start.data_ptr(), tile_count.data_ptr(), T, rows.shape[0] - 1,
+        max_per_tile, slice_len, keys.data_ptr(), perm.data_ptr(),
+        2 * TI.key_bits(T), plan.data_ptr(), u.data_ptr(), v.data_ptr(),
+        depth.data_ptr(), part.data_ptr(), out.data_ptr(), int(running_min),
+        Q, max_items, stream)
     if err != 0:
         raise RuntimeError(f"integrate kernel launch failed: CUDA error {err}")
-    launches_integrate += 1
     return out

@@ -10,9 +10,14 @@ product's order does not matter.  Points outside the image or in front of
 the near plane get alpha 0.
 
 Two implementations of the per-view product:
-  * the hand-written CUDA kernel csrc/integrate.cu (ops/cuda_raster.py:
-    integrate), which every query on CUDA tensors goes through;
-  * `_alpha_impl`, its plain PyTorch version (the points grouped by tile,
+  * the hand-written CUDA kernels csrc/integrate_prep.cu (the row table
+    and the points' sort keys) and csrc/integrate.cu (the item plan, the
+    field with its division- and exp-free rejection of the pairs that
+    cannot reach 1/255, and the second pass of split windows), through
+    ops/cuda_raster.py:integrate, which every query on CUDA tensors goes
+    through; their plain versions here are _pack_rows, _point_keys,
+    _integrate_items and _pair_rejected (the rejection's f32 mirror);
+  * `_alpha_impl`, the plain PyTorch field (the points grouped by tile,
     each tile's window in chunks), used for CPU tensors and as the
     yardstick the kernel is held against.
 
@@ -35,6 +40,12 @@ from . import binning as B
 
 ALPHA_EPS = 1.0 / 255.0
 BLOCK = B.BLOCK
+# the rejection's margin for the rounding of g = t_c a + b and of a x b,
+# per unit |b|^2 (argued in csrc/integrate.cu's header)
+REJECT_KAPPA = 4e-6
+POINTS_PER_ITEM = 512      # csrc/integrate.cu:kItemPoints
+SLICE_LEN = 256            # window rows per kernel item
+KEY_RANGE = 2.0            # ray coordinates the sort key resolves
 
 overflow_views = 0        # views with a truncated binning since the last reset
 
@@ -116,6 +127,125 @@ def _pair_alpha(rows, u, v, ray_depth):
     val = g[0] * g[0] + g[1] * g[1] + g[2] * g[2]
     alpha = torch.clamp_max(m[12] * torch.exp(-0.5 * val), 0.99)
     return torch.where(alpha >= ALPHA_EPS, alpha, 0.0)
+
+
+def _pack_rows(v2g_mb, opa):
+    """The kernel's (P + 1, 16) f32 row table, the plain version of
+    csrc/integrate_prep.cu's: M (9), b (3), opa, |b|^2 - thr_row with
+    thr_row = reject_threshold(opa) + REJECT_KAPPA |b|^2, two zeros; row P
+    is a sentinel of opacity 0.  reject_threshold is csrc/gof_pair.cuh's:
+    2 ln(opa / (1/255)) raised by 1e-4 relative and 2e-3 absolute, -inf
+    below an opacity of 1/255 (so the column is +inf and every pair with
+    the row is rejected)."""
+    P = v2g_mb.shape[0]
+    eps = torch.tensor(ALPHA_EPS, dtype=torch.float32)
+    thr = (2.0 * torch.log(opa / eps)) * 1.0001 + 2e-3
+    thr = torch.where(opa < eps, float("-inf"), thr)
+    b = v2g_mb[:, 9:12]
+    b2 = b[:, 0] * b[:, 0] + b[:, 1] * b[:, 1] + b[:, 2] * b[:, 2]
+    rows = torch.zeros((P + 1, 16), dtype=torch.float32, device=opa.device)
+    rows[:P, :12] = v2g_mb
+    rows[:P, 12] = opa
+    rows[:P, 13] = b2 - (thr + REJECT_KAPPA * b2)
+    rows[P, 13] = float("inf")
+    return rows
+
+
+def _pair_rejected(rows, u, v):
+    """The f32 mirror of the kernel's rejection (csrc/integrate.cu:
+    surely_fails): True where |a|^2 (|b|^2 - thr_row) - (a.b)^2 > 0, that
+    is |a x b|^2 > |a|^2 thr_row, which implies alpha < 1/255.  rows:
+    (Q or 1, C, 16) packed rows (_pack_rows); u, v: (Q,).  `a` is computed
+    as _pair_alpha computes it.  Returns (Q, C) bool."""
+    m = rows.unbind(-1)
+    U, V = u[:, None], v[:, None]
+    a = [m[3 * k] * U + m[3 * k + 1] * V + m[3 * k + 2] for k in range(3)]
+    AA = a[0] * a[0] + a[1] * a[1] + a[2] * a[2]
+    ab = a[0] * m[9] + a[1] * m[10] + a[2] * m[11]
+    return AA * m[13] - ab * ab > 0
+
+
+class ItemPlan(NamedTuple):
+    """The field kernel's work plan for one view (_integrate_items).
+    Segment s < T holds the inside points of tile s, segment T the rest."""
+    keys: torch.Tensor        # (Q,) int32 sort keys, ascending
+    perm: torch.Tensor        # (Q,) int64 sorted position -> point
+    seg_start: torch.Tensor   # (T + 2,) int32 first position of segment s
+    item_start: torch.Tensor  # (T + 2,) int32 first item of segment s
+    part_start: torch.Tensor  # (T + 2,) int32 first partial of segment s
+
+
+def key_bits(num_tiles: int) -> int:
+    """Bits per ray coordinate in the sort key: what int32 leaves beside
+    the segment (0..T), at most 15."""
+    return min(15, (31 - (num_tiles + 1).bit_length()) // 2)
+
+
+def _spread_bits(x):
+    """The bits of x (< 2^16) moved to the even positions (Morton)."""
+    x = (x | (x << 8)) & 0x00FF00FF
+    x = (x | (x << 4)) & 0x0F0F0F0F
+    x = (x | (x << 2)) & 0x33333333
+    return (x | (x << 1)) & 0x55555555
+
+
+def _point_keys(tile, inside, u, v, num_tiles: int):
+    """(Q,) int32 sort keys, the plain version of csrc/integrate_prep.cu's:
+    the segment (the tile if inside, else T) above the Morton code of the
+    ray (u, v), each quantised to 2^key_bits levels over [-KEY_RANGE,
+    KEY_RANGE), so that points next to each other in a tile's order lie
+    next to each other in the image."""
+    bits = key_bits(num_tiles)
+    levels = 1 << bits
+
+    def quant(x):
+        q = torch.floor((x + KEY_RANGE) * (levels / (2 * KEY_RANGE)))
+        return torch.clamp(torch.nan_to_num(q), 0, levels - 1).to(torch.int64)
+    code = _spread_bits(quant(u)) | (_spread_bits(quant(v)) << 1)
+    seg = torch.where(inside, tile.to(torch.int64), num_tiles)
+    return torch.where(inside, (seg << (2 * bits)) | code,
+                       seg << (2 * bits)).to(torch.int32)
+
+
+def _integrate_items(tile, inside, u, v, tile_count, max_per_tile: int,
+                     slice_len: int = SLICE_LEN,
+                     per_item: int = POINTS_PER_ITEM) -> ItemPlan:
+    """The kernel's item plan in torch ops, the plain version of
+    csrc/integrate.cu:plan_kernel with the keys of _point_keys.  The points
+    are sorted by key (by segment, Morton order inside a tile).  Segment s
+    has ceil(n_pts / per_item) point blocks and max(1, ceil(window /
+    slice_len)) window slices, window = min(tile_count, max_per_tile) (0
+    outside); its items are its (slice, block)s, block fastest, so that
+    neighbouring CTAs read the same rows.  A segment of more than one slice
+    keeps slices x n_pts partial products from part_start[s] on,
+    slice-major."""
+    T = tile_count.shape[0]
+    dev = tile.device
+    keys, perm = torch.sort(_point_keys(tile, inside, u, v, T))
+    seg = keys >> (2 * key_bits(T))
+    seg_start = torch.searchsorted(
+        seg, torch.arange(T + 2, dtype=seg.dtype, device=dev))
+    n_pts = seg_start[1:] - seg_start[:-1]
+    window = torch.cat([torch.clamp_max(tile_count, max_per_tile),
+                        tile_count.new_zeros(1)]).to(seg_start.dtype)
+    slices = torch.clamp_min((window + slice_len - 1) // slice_len, 1)
+    items = (n_pts + per_item - 1) // per_item * slices
+    parts = torch.where(slices > 1, slices * n_pts, 0)
+
+    def starts(x):
+        out = torch.zeros(T + 2, dtype=torch.int32, device=dev)
+        out[1:] = torch.cumsum(x, 0)
+        return out
+    return ItemPlan(keys, perm, seg_start.to(torch.int32), starts(items),
+                    starts(parts))
+
+
+def plan_bounds(num_points: int, num_tiles: int, max_per_tile: int,
+                slice_len: int, per_item: int = POINTS_PER_ITEM):
+    """Host bounds, with no sync, on a plan's (items, partial products)."""
+    max_slices = max(1, -(-max_per_tile // slice_len))
+    return ((num_points // per_item + num_tiles + 1) * max_slices,
+            num_points * max_slices if max_slices > 1 else 0)
 
 
 def _point_alpha_product(rows, u, v, ray_depth):

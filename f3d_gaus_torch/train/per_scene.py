@@ -24,6 +24,14 @@ where the JAX package reads its values, at `log_every` and at surgery, and
 at the end.  The JAX trainer drops the render's overflow flag, so a step
 whose binning was truncated trains silently; the port trains the same way
 but counts such steps (`hist["overflow_steps"]`).
+
+The config's caps (`pair_cap`, `max_per_tile`) are the JAX package's and
+suit 32^2 tests; at 800^2 they truncate every step.  `fit_scene(caps=
+"plan")` sizes them from the scene instead (`needed_caps`, `plan_caps`):
+at init and every `densification_interval` steps (so after each surgery),
+over the alive rows at every training camera, times a headroom, never
+below the config's.  A render that nothing truncates does not depend on
+its caps, so where the config's caps suffice the arithmetic is unchanged.
 """
 from __future__ import annotations
 
@@ -34,14 +42,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core import gaussians as G
 from ..core.cameras import Camera
 from ..core.device import EventClock, resolve_device
 from ..core.quaternions import quat_to_rotmat
+from ..ops import binning
 from ..ops import knn as knn_ops
 from ..ops import rasterize
 from . import losses
 
 SH_C0 = 0.28209479177387814
+CAP_HEADROOM = 2.0       # planned caps: this times the scene's need
 
 
 def inverse_sigmoid(x):
@@ -195,6 +206,54 @@ def render_scene(scene: SceneParams, camera, cfg: PerSceneConfig, bg,
         kernel_size=cfg.kernel_size, scale_modifier=scale_modifier,
         pair_cap=cfg.pair_cap, max_per_tile=cfg.max_per_tile,
         chunk=cfg.chunk, means2d_stats=means2d_stats, mask=scene.alive)
+
+
+PLAN_CHUNK = 1 << 22      # (camera, Gaussian) footprints per planning step
+
+
+@torch.no_grad()
+def needed_caps(scene: SceneParams, cameras, cfg: PerSceneConfig) -> dict:
+    """What the scene's alive rows need at `cameras`, at most over them:
+    {'pairs': the (Gaussian, tile) pair count, 'tile': the fullest tile's
+    Gaussians}, both exact: the footprints preprocess gives
+    (gaussians.screen_footprints, many cameras of one size and field of
+    view at once, PLAN_CHUNK footprints at a time), their pair counts
+    (binning.tile_rects) and tile occupancy (binning.tile_occupancy); no
+    binning.  Dead rows are culled as the render culls them.  One host
+    read for all the cameras."""
+    g = activated(scene)
+    groups: dict = {}
+    for cam in cameras:
+        groups.setdefault((cam.width, cam.height, cam.tan_fovx,
+                           cam.tan_fovy), []).append(cam)
+    step = max(1, PLAN_CHUNK // max(scene.xyz.shape[0], 1))
+    pairs, tiles = [], []
+    for cams in groups.values():
+        for i in range(0, len(cams), step):
+            sub = cams[i:i + step]
+            m2d, radii = G.screen_footprints(
+                g["xyz"], g["scaling"], g["rotation"],
+                np.stack([c.world_view for c in sub]),
+                np.stack([c.full_proj for c in sub]), sub[0], cfg.kernel_size)
+            radii = torch.where(scene.alive, radii, 0)
+            *_, count = binning.tile_rects(m2d, radii, sub[0].width,
+                                           sub[0].height)
+            pairs.append(count.to(torch.int64).sum(-1).max())
+            tiles.append(binning.tile_occupancy(m2d, radii, sub[0].width,
+                                                sub[0].height).max().long())
+    n_pairs, n_tile = torch.stack([torch.stack(pairs).max(),
+                                   torch.stack(tiles).max()]).tolist()
+    return {"pairs": n_pairs, "tile": n_tile}
+
+
+def plan_caps(need: dict, cfg: PerSceneConfig) -> dict:
+    """Caps for `need` (needed_caps) times CAP_HEADROOM, never below the
+    config's: pair_cap rounded up to binning.suggest_pair_cap's bucket,
+    max_per_tile to a multiple of 256 (the slab's wide alignment)."""
+    pairs = binning.suggest_pair_cap(math.ceil(need["pairs"] * CAP_HEADROOM))
+    tile = -(-math.ceil(need["tile"] * CAP_HEADROOM) // 256) * 256
+    return {"pair_cap": max(cfg.pair_cap, pairs),
+            "max_per_tile": max(cfg.max_per_tile, tile)}
 
 
 def _loss_fn(diff_params, alive, stats_in, camera, target, bg,
@@ -401,7 +460,7 @@ def reset_opacity(scene: SceneParams, opt: AdamState):
 def fit_scene(cameras, targets, init_points, init_colors,
               cfg: PerSceneConfig, bg=None, extent: float | None = None,
               seed: int = 0, log_every: int = 0, gui=None, device=None,
-              timings=None):
+              timings=None, caps: str = "fixed"):
     """Full training loop (train.py:51-132): random camera order, render,
     loss, densify/prune window, opacity resets, SH-degree warmup.
 
@@ -411,14 +470,24 @@ def fit_scene(cameras, targets, init_points, init_colors,
     Runs on `device` (default: that of `targets` if a tensor, else
     `cuda`).  `timings`: a dict that receives the seconds of the scene's
     init (KNN included), the steps and the surgery (the card synchronised
-    around each surgery; no sync without it).
+    around each surgery; no sync without it), and with planning the
+    planning's.
+
+    caps: "fixed" renders at cfg's caps (the JAX package's behaviour);
+    "plan" plans them (plan_caps over needed_caps at every camera, with
+    CAP_HEADROOM) at init and every cfg.densification_interval steps, and
+    after an opacity reset.
 
     Returns (scene, hist): hist["loss"] / ["alive"] every `log_every`
     steps (as the JAX package), and, read at surgery or at the end,
     ["densify"] (iteration, alive rows and capacity after each surgery),
-    ["step_loss"] (every step's loss) and ["overflow_steps"] (steps whose
-    render was truncated by the caps).
+    ["step_loss"] (every step's loss), ["overflow_steps"] (steps whose
+    render was truncated by the caps), ["caps"] (each plan: iteration,
+    need and caps; empty with fixed caps) and ["plan_s"] (the seconds the
+    plans took, the card synchronised before each).
     """
+    if caps not in ("fixed", "plan"):
+        raise ValueError(f"caps must be 'fixed' or 'plan', got {caps!r}")
     dev = resolve_device(device, targets if torch.is_tensor(targets)
                          else None)
     mark = [time.perf_counter()]
@@ -447,7 +516,22 @@ def fit_scene(cameras, targets, init_points, init_colors,
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
     lap("init_s")
 
-    hist = {"loss": [], "alive": [], "densify": []}
+    hist = {"loss": [], "alive": [], "densify": [], "caps": [],
+            "plan_s": 0.0}
+
+    def replan(it):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        need = needed_caps(scene, cameras, cfg)
+        planned = plan_caps(need, cfg)
+        hist["plan_s"] += time.perf_counter() - t0
+        hist["caps"].append({"it": it, **need, **planned})
+        lap("plan_s")
+        return cfg._replace(**planned)
+
+    plan = caps == "plan"
+    run_cfg = replan(0) if plan else cfg
     # epoch-style sampling without replacement: the reference pops from a
     # reshuffled copy of the camera list (train.py:78-82 viewpoint_stack),
     # so no view starves on few-view scenes
@@ -461,7 +545,7 @@ def fit_scene(cameras, targets, init_points, init_colors,
         scene, opt, stats, aux = train_step(
             scene, opt, stats, (cam.world_view, cam.full_proj,
                                 cam.cam_center),
-            targets[v], bg, cfg, active_sh,
+            targets[v], bg, run_cfg, active_sh,
             (cam.width, cam.height, cam.tan_fovx, cam.tan_fovy))
         step_loss[it - 1] = aux["loss"]
         overflow += aux["overflow"]
@@ -478,13 +562,19 @@ def fit_scene(cameras, targets, init_points, init_colors,
             lap("surgery_s")
         if it % cfg.opacity_reset_interval == 0 and it < cfg.densify_until_iter:
             scene, opt = reset_opacity(scene, opt)
+        if plan and it < cfg.iterations and (
+                it % cfg.densification_interval == 0
+                or it % cfg.opacity_reset_interval == 0):
+            lap("steps_s")
+            run_cfg = replan(it)
 
         if log_every and it % log_every == 0:
             hist["loss"].append(float(aux["loss"]))
             hist["alive"].append(int(scene.alive.sum()))
             hist["overflow_steps"] = int(overflow)
         if gui is not None:
-            gui.poll(lambda vc: _gui_render(scene, vc, bg, cfg, active_sh))
+            gui.poll(lambda vc: _gui_render(scene, vc, bg, run_cfg,
+                                            active_sh))
     lap("steps_s")
     hist["step_loss"] = step_loss.tolist()
     hist["overflow_steps"] = int(overflow)

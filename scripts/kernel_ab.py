@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""This checkout's compositing kernels against another checkout's, on one
-card, in turns.
+"""This checkout's compositing kernels and field query against another
+checkout's, on one card, in turns.
 
     python3 scripts/kernel_ab.py --old DIR [--seed 0] [--iters 20] [--out DIR]
+                                 [--mesh_dir DIR] [--field_only]
 
 DIR is the root of another checkout of the repo, for example
 `git archive <commit> | tar -x -C build/old`.  Its f3d_gaus_torch is
@@ -18,7 +19,16 @@ init.  Each shape runs old, new, new, old, each a CUDA-event mean over
 bit for bit and how far the two backwards lie apart on the same residuals
 (chip_smoke.grad_agreement).  It also counts the SASS instructions of each
 kernel by opcode (cuobjdump -sass) and writes the listings to --out.
-Prints one JSON line per shape, then the card's name and power limit.
+
+The field query (cuda_raster.integrate, whose arguments every slice has
+kept) is compared on the mesh run's frontal view: --mesh_dir is a CLI
+mesh run's output of one image (default chip_smoke.py's, build/
+mesh_smoke/out/00_00, so run the smoke first), read back as chip_smoke.py's
+integrate_timing reads it, at that run's caps.  Old, new, new, old, how
+far the two fields lie apart (and each from the plain version), and the
+opcode counts of the field kernels.  --field_only skips the compositing
+shapes.  Prints one JSON line per shape, then the card's name and power
+limit.
 """
 from __future__ import annotations
 
@@ -87,6 +97,40 @@ def compare_shape(name, inp, old, iters, seed):
     return res
 
 
+def compare_field(mesh_dir, old, iters, dev):
+    """The field query, old against new, on the mesh run's frontal view."""
+    import torch
+    import chip_smoke as S
+    from f3d_gaus_torch.ops import cuda_raster as new
+    from f3d_gaus_torch.ops import integrate as TI
+
+    with open(os.path.join(mesh_dir, "mesh_stats.json")) as f:
+        stats = json.load(f)
+    pair_cap, mpt = stats["pair_cap"], stats["max_per_tile"]
+    cfg, gauss, _, cam, tp = S.frontal_field_view(mesh_dir, 128, dev)
+    s = TI._statics(cam, mpt, cfg.chunk, 1 << 14)
+    pre, bng, trunc = TI._prepare_view(gauss, cam, cfg.max_sh_degree, 0.0,
+                                       pair_cap, mpt)
+    S.require(not bool(trunc), "the view's binning is truncated")
+    q = TI.query_rays(tp, cam, s)
+    slab = (pre.v2g_mb, pre.opa_coef, bng.point_list, bng.tile_start,
+            bng.tile_count)
+    kargs = (*slab, q.u, q.v, q.depth, q.tile, q.inside, mpt)
+    k_new, k_old = new.integrate(*kargs), old.integrate(*kargs)
+    plain = TI._alpha_impl(*slab, q, s)
+    diff = (k_new - k_old).abs()
+    return {"phase": "kernel_ab", "shape": "field_frontal",
+            "P": int(pre.v2g_mb.shape[0]), "seed_points": int(tp.shape[0]),
+            "caps": {"pair_cap": pair_cap, "max_per_tile": mpt},
+            "bitwise_equal": bool(torch.equal(k_new, k_old)),
+            "max_abs_diff": float(diff.max()),
+            "points_differing": int((diff > 0).sum()),
+            "new_vs_plain": S.field_agreement(k_new, plain),
+            "old_vs_plain": S.field_agreement(k_old, plain),
+            "field": in_turns(lambda: old.integrate(*kargs),
+                              lambda: new.integrate(*kargs), iters)}
+
+
 def sass_counts(so, out_dir, tag):
     """Instruction counts by opcode of each kernel in a shared library."""
     from f3d_gaus_torch.ops import cuda_raster
@@ -116,6 +160,9 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "kernel_ab"))
+    ap.add_argument("--mesh_dir", default=os.path.join(
+        ROOT, "build", "mesh_smoke", "out", "00_00"))
+    ap.add_argument("--field_only", action="store_true")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -147,6 +194,20 @@ def main(argv=None) -> int:
                                                 f"{tag}_{name}")
     with open(os.path.join(args.out, "sass_counts.json"), "w") as f:
         json.dump(sass, f)
+    print(json.dumps({"phase": "sass_integrate", **{
+        tag: sass[f"{tag}_integrate"] for tag in ("old", "new")}}),
+        flush=True)
+
+    def report(line):
+        line["card"] = card
+        print(json.dumps(line), flush=True)
+        with open(os.path.join(args.out, "kernel_ab.jsonl"), "a") as f:
+            f.write(json.dumps(line) + "\n")
+
+    report(compare_field(args.mesh_dir, old, args.iters, dev))
+    if args.field_only:
+        print(card, flush=True)
+        return 0
 
     # the NVS render at the serving path's final caps
     cfg = dataclasses.replace(C.PipelineConfig(), num_nvs_views=2)
@@ -188,11 +249,7 @@ def main(argv=None) -> int:
                                    max_per_tile=tcfg.max_per_tile * 2)
     del model
     for name, inp in (("nvs", nvs), ("canonical", cano)):
-        line = compare_shape(name, inp, old, args.iters, args.seed)
-        line["card"] = card
-        print(json.dumps(line), flush=True)
-        with open(os.path.join(args.out, "kernel_ab.jsonl"), "a") as f:
-            f.write(json.dumps(line) + "\n")
+        report(compare_shape(name, inp, old, args.iters, args.seed))
     print(card, flush=True)
     return 0
 

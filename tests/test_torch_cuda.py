@@ -218,6 +218,70 @@ def test_integrate_kernel_matches_plain(cuda, case):
     torch.testing.assert_close(km, pm, atol=INTEGRATE_TOL, rtol=0)
 
 
+@pytest.mark.parametrize("slice_len", [None, torch_cases.LONG_WINDOW_SLICE])
+@pytest.mark.parametrize("case", list(INTEGRATE_CASES))
+def test_integrate_kernel_slices(cuda, case, slice_len):
+    """The wrapper at the default slice length and at one that splits the
+    long windows: one view's field and the running minimum in place within
+    2e-5 of the plain version, and two launches equal."""
+    _, cam, cloud, pts, kw = INTEGRATE_CASES[case]
+    tc = [torch.from_numpy(a).to(cuda) for a in cloud]
+    mpt = kw.get("max_per_tile", 1024)
+    s = TI._statics(cam, mpt, kw.get("chunk", 128), kw.get("point_chunk", 64))
+    pre, bng, _ = TI._prepare_view(tc, cam, 1, 0.0, kw.get("pair_cap", 1 << 18),
+                                   mpt)
+    q = TI.query_rays(torch.from_numpy(pts).to(cuda), cam, s)
+    slab = (pre.v2g_mb, pre.opa_coef, bng.point_list, bng.tile_start,
+            bng.tile_count)
+    args = (*slab, q.u, q.v, q.depth, q.tile, q.inside, mpt)
+    plain = TI._alpha_impl(*slab, q, s)
+    one = [cuda_raster.integrate(*args, slice_len=slice_len) for _ in range(2)]
+    torch.testing.assert_close(one[0], plain, atol=INTEGRATE_TOL, rtol=0)
+    assert torch.equal(one[0], one[1])
+    seeded = torch.rand(q.u.shape[0], device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+    out = seeded.clone()
+    assert cuda_raster.integrate(*args, out=out, slice_len=slice_len) is out
+    torch.testing.assert_close(out, torch.minimum(seeded, plain),
+                               atol=INTEGRATE_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("case", list(INTEGRATE_CASES))
+def test_integrate_prep_and_plan_match_plain(cuda, case):
+    """csrc/integrate_prep.cu's keys equal integrate._point_keys and its
+    rows integrate._pack_rows (the thresholds within an ulp or two);
+    csrc/integrate.cu's plan kernel gives _integrate_items' starts."""
+    _, cam, cloud, pts, kw = INTEGRATE_CASES[case]
+    tc = [torch.from_numpy(a).to(cuda) for a in cloud]
+    mpt = kw.get("max_per_tile", 1024)
+    s = TI._statics(cam, mpt, 128, 64)
+    pre, bng, _ = TI._prepare_view(tc, cam, 1, 0.0, kw.get("pair_cap", 1 << 18),
+                                   mpt)
+    q = TI.query_rays(torch.from_numpy(pts).to(cuda), cam, s)
+    T = bng.tile_start.shape[0]
+    rows, keys = cuda_raster.integrate_prep(pre.v2g_mb, pre.opa_coef, q.u,
+                                            q.v, q.tile, q.inside, T)
+    assert torch.equal(keys, TI._point_keys(q.tile, q.inside, q.u, q.v, T))
+    twin_rows = TI._pack_rows(pre.v2g_mb, pre.opa_coef)
+    assert torch.equal(rows[:, :13], twin_rows[:, :13])
+    # |b|^2 - thr_row: each side's logf may round differently by an ulp
+    b2 = (rows[:, 9:12] ** 2).sum(-1)
+    diff = (rows[:, 13] - twin_rows[:, 13]).abs().nan_to_num()
+    assert bool((diff <= 1e-6 * (b2 + 20.0)).all())
+    for L in (TI.SLICE_LEN, torch_cases.LONG_WINDOW_SLICE):
+        keys_s, perm = torch.sort(keys)
+        plan = torch.full((3 * (T + 2) + 1,), -1, dtype=torch.int32,
+                          device=cuda)
+        cuda_raster._integrate_launch(rows, keys_s, perm, bng.point_list,
+                                      bng.tile_start, bng.tile_count, q.u,
+                                      q.v, q.depth, mpt, L, plan=plan)
+        twin = TI._integrate_items(q.tile, q.inside, q.u, q.v,
+                                   bng.tile_count, mpt, L)
+        assert torch.equal(plan[:-1], torch.cat([
+            twin.seg_start, twin.item_start, twin.part_start]))
+        assert int(plan[-1]) >= int(twin.item_start[-1])   # all taken
+
+
 def test_extract_mesh_kernel_matches_plain(cuda):
     """tests/test_mesh.py's blob on a 24^3 lattice with 4 bisection steps:
     the same faces through the kernel as through the plain version, the

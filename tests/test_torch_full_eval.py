@@ -126,16 +126,39 @@ def test_full_eval_layout_on_cpu(tmp_path):
     res = json.load(open(base / "results.json"))
     summary = res["summary"]
     assert set(summary) == {"scene", "iterations", "final_gaussians",
-                            "overflow_steps", "test_psnr", "test_ssim",
-                            "train_psnr", "train_ssim"}
+                            "overflow_steps", "overflow_test_renders",
+                            "overflow_train_renders", "plan_s", "test_psnr",
+                            "test_ssim", "train_psnr", "train_ssim"}
     assert summary["iterations"] == 12 and summary["final_gaussians"] > 0
     assert summary["overflow_steps"] == 0
+    assert summary["overflow_test_renders"] == 0
+    assert summary["overflow_train_renders"] == 0
+    assert summary["plan_s"] > 0
     assert set(res["splits"]) == {"test", "train"}
     full = json.load(open(out_root / "full_eval.json"))
     assert full == json.loads(json.dumps(agg))
     assert set(full["mean"]) == {"test_psnr", "test_ssim", "train_psnr",
                                  "train_ssim"}
     assert all(np.isfinite(v) for v in full["mean"].values())
+
+
+@pytest.mark.parametrize("caps", ["fixed", "plan"])
+def test_truncated_renders_are_counted(tmp_path, caps):
+    """At a max_per_tile too small for the scene, the JAX package's fixed
+    caps truncate every step and both test renders, and the summary counts
+    them; planned caps (run_scene's default) truncate none."""
+    scene_dir = tmp_path / "scene1"
+    _write_blender_scene(str(scene_dir), np.random.default_rng(0))
+    cfg = TP.PerSceneConfig(
+        iterations=4, densify_from_iter=100, sh_degree=1, pair_cap=1 << 12,
+        max_per_tile=16, chunk=16, cap_bucket=128)
+    summary = TFE.run_scene(str(scene_dir), str(tmp_path / "out"), cfg=cfg,
+                            n_init_points=200, device="cpu", caps=caps)
+    n = {"fixed": (4, 2), "plan": (0, 0)}[caps]
+    assert (summary["overflow_steps"],
+            summary["overflow_test_renders"]) == n
+    assert (summary["plan_s"] > 0) == (caps == "plan")
+    assert np.isfinite(summary["test_psnr"])
 
 
 def _request(width=8, height=6):

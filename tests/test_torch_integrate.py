@@ -2,7 +2,11 @@
 version on the CPU) against f3d_gaus_tpu.ops.integrate on the 32^2 cases
 of tests/test_integrate.py: alpha_integrated at that file's own tolerance
 (2e-5), color_integrated exactly, and the running minimum over a 3-view
-orbit at 2e-5."""
+orbit at 2e-5.  Then what the kernel's wrapper computes in torch: the
+rejection's f32 mirror never rules out a pair that _pair_alpha passes
+(also on thin Gaussians), and the item plan _integrate_items covers each
+(inside point, window slot) once, its partial products at distinct
+places, and, walked as the kernel walks it, gives the plain field."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -124,3 +128,190 @@ def test_kernel_wrapper_takes_only_cuda_tensors():
     _, cam, cloud, pts, kw = CASES["cloud16_outside"]
     with pytest.raises(ValueError, match="backend"):
         TI.integrate_points(*cloud, cam, pts, device="cpu", backend="xla")
+
+
+def _view(case):
+    """(statics, preprocess, binning, query rays) of a case's camera."""
+    _, cam, cloud, pts, kw = case
+    s = TI._statics(cam, kw.get("max_per_tile", 1024), kw.get("chunk", 128),
+                    kw.get("point_chunk", 1 << 14))
+    pre, bng, _ = TI._prepare_view(tuple(map(torch.from_numpy, cloud)), cam,
+                                   1, 0.0, kw.get("pair_cap", 1 << 18),
+                                   s.max_per_tile)
+    return s, pre, bng, TI.query_rays(torch.from_numpy(pts), cam, s)
+
+
+def _windows(s, bng, q):
+    """Each inside point's window: (point, slab ids) in point order."""
+    for i in torch.nonzero(q.inside)[:, 0].tolist():
+        t = int(q.tile[i])
+        n = min(int(bng.tile_count[t]), s.max_per_tile)
+        yield i, bng.point_list[int(bng.tile_start[t]):][:n].long()
+
+
+@pytest.mark.parametrize("case", list(CASES) + ["thin300"])
+def test_rejection_never_rules_out_a_passing_pair(case):
+    """integrate._pair_rejected, the mirror of the kernel's division- and
+    exp-free test, holds only where _pair_alpha fails 1/255, on every
+    inside point's whole window; it rules out most failing pairs, and a
+    quarter of them on the thin Gaussians (scales down to 1e-4 of the
+    others), whose margin kappa |b|^2 is wide."""
+    c = torch_cases.thin_integrate_case() if case == "thin300" else \
+        CASES[case]
+    s, pre, bng, q = _view(c)
+    table = TI._pack_rows(pre.v2g_mb, pre.opa_coef)
+    rows13 = torch.cat([pre.v2g_mb, pre.opa_coef[:, None]], 1)
+    rows13 = torch.cat([rows13, rows13.new_zeros((1, 13))], 0)
+    pairs = rejected = failing = 0
+    for i, ids in _windows(s, bng, q):
+        ids = ids.clamp(0, pre.v2g_mb.shape[0])
+        sl = slice(i, i + 1)
+        alpha = TI._pair_alpha(rows13[ids][None], q.u[sl], q.v[sl],
+                               q.depth[sl])
+        rej = TI._pair_rejected(table[ids][None], q.u[sl], q.v[sl])
+        assert not bool((rej & (alpha > 0)).any()), (i, ids[rej & (alpha > 0)])
+        pairs += ids.numel()
+        rejected += int(rej.sum())
+        failing += int((alpha == 0).sum())
+    assert 0 < rejected <= failing < pairs
+    # the margin for thin Gaussians grows with |b|^2, so fewer are ruled out
+    share = 0.25 if case == "thin300" else 0.5
+    assert rejected > share * failing, (rejected, failing, pairs)
+
+
+def test_row_table_rejects_the_sentinel_and_faint_rows():
+    """Row P of the packed table, and any row of an opacity below 1/255,
+    has the threshold -inf (its column |b|^2 - thr_row is +inf): every
+    pair with such a row and a ray of nonzero |a| is rejected, as its
+    alpha fails; an opacity of exactly 1/255 keeps a finite threshold."""
+    mb = torch.randn(3, 12)
+    opa = torch.tensor([0.5, 0.5 * TI.ALPHA_EPS, TI.ALPHA_EPS],
+                       dtype=torch.float32)
+    table = TI._pack_rows(mb, opa)
+    assert table.shape == (4, 16)
+    torch.testing.assert_close(table[:3, :12], mb, atol=0, rtol=0)
+    col = table[:, 13]
+    assert col[1] == col[3] == float("inf") and bool(col[[0, 2]].isfinite()
+                                                     .all())
+    assert bool((table[3, :13] == 0).all())
+    rej = TI._pair_rejected(table[:3][None], torch.zeros(5), torch.zeros(5))
+    assert bool(rej[:, 1].all())
+
+
+def _kernel_walk(plan, s, table, bng, q, slice_len):
+    """The field as csrc/integrate.cu walks the plan: each item's points
+    against its window slice in order (a rejected pair, or one whose
+    alpha fails, multiplies by 1), a one-slice segment written at once,
+    a split one through its partial products, then multiplied in slice
+    order.  Returns (field, the (point, slot) pairs walked, the partial
+    indices written)."""
+    T = bng.tile_start.shape[0]
+    P = table.shape[0] - 1
+    _, max_parts = TI.plan_bounds(q.u.shape[0], T, s.max_per_tile, slice_len)
+    rows13 = table[:, :13]
+    out = torch.zeros_like(q.u)
+    part = {}
+    walked = []
+    seg_start, item_start = plan.seg_start.tolist(), plan.item_start.tolist()
+    part_start, perm = plan.part_start.tolist(), plan.perm.tolist()
+    K = TI.POINTS_PER_ITEM
+    for item in range(item_start[-1]):
+        seg = max(k for k in range(T + 1) if item_start[k] <= item)
+        n_pts = seg_start[seg + 1] - seg_start[seg]
+        n_blocks = -(-n_pts // K)
+        n_slices = (item_start[seg + 1] - item_start[seg]) // n_blocks
+        local = item - item_start[seg]
+        block, sl = local % n_blocks, local // n_blocks
+        n = (min(int(bng.tile_count[seg]), s.max_per_tile) if seg < T
+             else 0)
+        lo, hi = sl * slice_len, min(n, (sl + 1) * slice_len)
+        start = int(bng.tile_start[seg]) if seg < T else 0
+        ids = bng.point_list[start + lo:start + max(hi, lo)].long().clamp(0, P)
+        for k in range(block * K, min(n_pts, (block + 1) * K)):
+            i = perm[seg_start[seg] + k]
+            walked += [(i, slot) for slot in range(lo, hi)]
+            qi = slice(i, i + 1)
+            alpha = TI._pair_alpha(rows13[ids][None], q.u[qi], q.v[qi],
+                                   q.depth[qi])
+            rej = TI._pair_rejected(table[ids][None], q.u[qi], q.v[qi])
+            Tp = torch.prod(torch.where(rej, 1.0, 1.0 - alpha))
+            if n_slices == 1:
+                out[i] = 1.0 - Tp
+            else:
+                idx = part_start[seg] + sl * n_pts + k
+                assert idx not in part and 0 <= idx < max_parts
+                part[idx] = (i, sl, Tp)
+    for i in range(q.u.shape[0]):
+        mine = sorted((sl, Tp) for j, sl, Tp in part.values() if j == i)
+        if mine:
+            prod = torch.ones(())
+            for _, Tp in mine:
+                prod = prod * Tp
+            out[i] = 1.0 - prod
+    return out, walked, set(part)
+
+
+@pytest.mark.parametrize("slice_len", [torch_cases.LONG_WINDOW_SLICE,
+                                       TI.SLICE_LEN])
+@pytest.mark.parametrize("case", ["long_window", "dense600_mpt128",
+                                  "cloud16_outside"])
+def test_integrate_items_cover_each_pair_once(case, slice_len):
+    """_integrate_items on the cases: every (inside point, window slot)
+    pair is walked by exactly one item, points outside by an item of an
+    empty window, the host bounds hold, and the kernel's walk of the plan
+    gives the plain field within 2e-5.  long_window has a tile whose
+    window is more than three forced slices long and a tile with one
+    point."""
+    s, pre, bng, q = _view(CASES[case])
+    plan = TI._integrate_items(q.tile, q.inside, q.u, q.v, bng.tile_count,
+                               s.max_per_tile, slice_len)
+    T = bng.tile_start.shape[0]
+    assert sorted(plan.perm.tolist()) == list(range(q.u.shape[0]))
+    max_items, max_parts = TI.plan_bounds(q.u.shape[0], T, s.max_per_tile,
+                                          slice_len)
+    assert int(plan.item_start[-1]) <= max_items
+    assert int(plan.part_start[-1]) <= max_parts
+    seg = torch.where(q.inside, q.tile, T)[plan.perm]
+    assert bool((seg[1:] >= seg[:-1]).all())       # grouped by segment
+    assert bool((plan.keys[1:] >= plan.keys[:-1]).all())
+    table = TI._pack_rows(pre.v2g_mb, pre.opa_coef)
+    got, walked, _ = _kernel_walk(plan, s, table, bng, q, slice_len)
+    expect = [(i, slot) for i, ids in _windows(s, bng, q)
+              for slot in range(ids.numel())]
+    assert sorted(walked) == sorted(expect)
+    assert len(set(walked)) == len(walked)
+    plain = TI._alpha_impl(pre.v2g_mb, pre.opa_coef, bng.point_list,
+                           bng.tile_start, bng.tile_count, q, s)
+    torch.testing.assert_close(got, plain, atol=ATOL, rtol=0)
+    slices = (plan.item_start[1:] - plan.item_start[:-1]).tolist()
+    if case == "long_window":
+        n_pts = (plan.seg_start[1:] - plan.seg_start[:-1]).tolist()
+        assert n_pts[:T] == [64, 0, 0, 1]
+        windows = bng.tile_count.tolist()
+        assert windows[0] > 3 * torch_cases.LONG_WINDOW_SLICE
+        assert slices[0] == -(-windows[0] // slice_len) >= 2
+        assert slices[3] == 1
+
+
+def test_point_keys_order_each_tile_in_morton_order():
+    """_point_keys: the segment in the high bits (points outside last),
+    below it the Morton code of (u, v) at 2^key_bits levels over
+    [-KEY_RANGE, KEY_RANGE), so that sorted neighbours are image
+    neighbours; the key fits int32 at every tile count up to 2^20."""
+    for T in (1, 4, 256, 2500, 1 << 20):
+        bits = TI.key_bits(T)
+        assert bits >= 5 and (T << (2 * bits)) + (1 << (2 * bits)) <= 2 ** 31
+    g = torch.linspace(-0.5, 0.5, 8)
+    u, v = [x.reshape(-1) for x in torch.meshgrid(g, g, indexing="xy")]
+    tile = torch.zeros(64, dtype=torch.int32)
+    inside = torch.ones(64, dtype=torch.bool)
+    inside[5] = False
+    keys = TI._point_keys(tile, inside, u, v, 4)
+    bits = TI.key_bits(4)
+    assert int(keys[5]) == 4 << (2 * bits)
+    order = torch.argsort(keys[inside])
+    cells = torch.stack([u, v], -1)[inside][order]
+    # the first four in Morton order form the lowest 2 x 2 block
+    assert sorted(cells[:4].tolist()) == sorted(
+        [[g[0].item(), g[0].item()], [g[1].item(), g[0].item()],
+         [g[0].item(), g[1].item()], [g[1].item(), g[1].item()]])

@@ -9,8 +9,9 @@ at the small cases of tests/torch_cases.py:
   * the walks it counts nest (window >= walked >= bwd >= contributors) and
     its contributors are the mask's bits up to each pixel's last_pos;
   * field_pair_work, the field query's count, walks each inside point's
-    whole window and counts as passing the pairs whose alpha reaches 1/255,
-    on the field-query cases."""
+    whole window and counts as passing the pairs whose alpha reaches 1/255
+    and as rejected those the kernel's shortcut rules out (never a passing
+    one), on the field-query cases."""
 import os
 import sys
 
@@ -136,15 +137,22 @@ def test_field_pair_work_counts_each_window(case):
     rows = torch.cat([pre.v2g_mb, pre.opa_coef[:, None]], 1)
     field = TI._alpha_impl(*slab, q, s)
     pairs = passing = 0
+    windows = []
     for i in torch.nonzero(q.inside)[:, 0].tolist():
         t = int(q.tile[i])
         n = min(int(bng.tile_count[t]), s.max_per_tile)
         ids = bng.point_list[int(bng.tile_start[t]):][:n].long()
+        windows.append((i, ids))
         alpha = TI._pair_alpha(rows[ids][None], q.u[i:i + 1], q.v[i:i + 1],
                                q.depth[i:i + 1])
         pairs += n
         passing += int((alpha > 0).sum())
         torch.testing.assert_close(1 - torch.prod(1 - alpha), field[i],
                                    atol=1e-6, rtol=0)
-    assert w == {"pairs": pairs, "passing": passing}
-    assert 0 < passing < pairs
+    rejected = int(sum(TI._pair_rejected(
+        TI._pack_rows(pre.v2g_mb, pre.opa_coef)[ids.clamp(0, len(rows))][None],
+        q.u[i:i + 1], q.v[i:i + 1]).sum()
+        for i, ids in windows))
+    assert w == {"pairs": pairs, "passing": passing, "rejected": rejected,
+                 "rejected_passing": 0}
+    assert 0 < passing < pairs and 0 < rejected <= pairs - passing

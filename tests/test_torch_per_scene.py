@@ -336,6 +336,79 @@ def test_fit_scene_counts_overflowed_steps():
     assert all(np.isfinite(hist["step_loss"]))
 
 
+def test_needed_caps_counts_exactly():
+    """needed_caps, with no binning, is the binning's own count: the pairs
+    and the fullest tile of the alive rows, at most over the cameras; the
+    per-tile occupancy equals bin_gaussians' tile_count tile by tile, and
+    the footprints of all cameras at once equal preprocess's at each."""
+    from f3d_gaus_torch.ops import binning as TB
+    rng = np.random.default_rng(4)
+    cams, gt, _ = _gt_views(rng, n_views=3)
+    scene = TP.init_scene(gt[0], np.full((40, 3), 0.5), small_cfg(TP),
+                          device="cpu")
+    scene = scene._replace(alive=scene.alive & (torch.arange(
+        scene.xyz.shape[0]) % 3 != 1))
+    cfg = small_cfg(TP)
+    pairs, tile = [], []
+    for cam in cams:
+        out = TP.render_scene(scene, cam, cfg._replace(pair_cap=1 << 14),
+                              torch.zeros(3), 1)
+        bng = out["binning"]
+        pre = TP.G.preprocess(*[TP.activated(scene)[k] for k in (
+            "xyz", "scaling", "rotation", "opacity", "shs")], 1, cam)
+        occ = TB.tile_occupancy(pre.means2d, torch.where(
+            scene.alive, pre.radii, 0), cam.width, cam.height)
+        torch.testing.assert_close(occ, bng.tile_count, atol=0, rtol=0)
+        pairs.append(int(bng.num_pairs))
+        tile.append(int(bng.tile_count.max()))
+    g = TP.activated(scene)
+    m2d, radii = TP.G.screen_footprints(
+        g["xyz"], g["scaling"], g["rotation"],
+        np.stack([c.world_view for c in cams]),
+        np.stack([c.full_proj for c in cams]), cams[0])
+    for v, cam in enumerate(cams):       # bit for bit preprocess's
+        pre = TP.G.preprocess(*[g[k] for k in ("xyz", "scaling", "rotation",
+                                               "opacity", "shs")], 1, cam)
+        assert torch.equal(m2d[v], pre.means2d)
+        assert torch.equal(radii[v], pre.radii)
+    need = TP.needed_caps(scene, cams, cfg)
+    assert need == {"pairs": max(pairs), "tile": max(tile)}
+    assert need["tile"] > 16
+    assert TP.CAP_HEADROOM == 2.0 and TP.plan_caps(need, cfg) == {
+        "pair_cap": max(cfg.pair_cap, TB.suggest_pair_cap(2 * max(pairs))),
+        "max_per_tile": max(cfg.max_per_tile,
+                            -(-2 * max(tile) // 256) * 256)}
+
+
+def test_planned_caps_truncate_no_step():
+    """Caps too small for the scene (those of
+    test_fit_scene_counts_overflowed_steps), planned: no step is
+    truncated, each plan covers its need with the headroom, and the fit
+    equals one at ample fixed caps (a render nothing truncates does not
+    depend on its caps); two densifications and their replans included."""
+    rng = np.random.default_rng(1)
+    cams, gt, targets = _gt_views(rng, n_views=2)
+    cfg = small_cfg(TP, iterations=24, densify_from_iter=5,
+                    densification_interval=8, densify_until_iter=20,
+                    max_per_tile=16, chunk=16)
+    init = (gt[0], np.full((40, 3), 0.5))
+    scene, hist = TP.fit_scene(cams, targets, *init, cfg, seed=2,
+                               caps="plan")
+    assert hist["overflow_steps"] == 0
+    assert [c["it"] for c in hist["caps"]] == [0, 8, 16]
+    assert [d["it"] for d in hist["densify"]] == [8, 16]
+    for c in hist["caps"]:
+        assert c["max_per_tile"] >= 2 * c["tile"] > 2 * 16
+        assert c["pair_cap"] >= 2 * c["pairs"]
+    assert hist["plan_s"] > 0
+    ample = cfg._replace(pair_cap=1 << 14, max_per_tile=512)
+    ref, ref_hist = TP.fit_scene(cams, targets, *init, ample, seed=2)
+    assert ref_hist["overflow_steps"] == 0 and ref_hist["caps"] == []
+    assert hist["step_loss"] == ref_hist["step_loss"]
+    for a, b in zip(scene, ref):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
 def test_gui_hook_renders_the_live_scene():
     """fit_scene polls the viewer every iteration with a render closure;
     a viewer camera equal to a training camera renders what render_scene

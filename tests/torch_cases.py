@@ -141,7 +141,9 @@ def integrate_cases(seed=0):
     cloud with its centres, jittered copies and outliers is that file's
     first test on the same seed; the 16-Gaussian cloud adds a point far
     outside the frustum to its centres; the 600-Gaussian cloud puts more
-    pairs in a tile than max_per_tile, so windows are cut."""
+    pairs in a tile than max_per_tile, so windows are cut; `long_window`
+    puts a 900-Gaussian cluster on one tile (a window of more than three
+    slices of LONG_WINDOW_SLICE rows) and a lone point on another tile."""
     rng = np.random.default_rng(seed)
     cloud48 = make_gaussian_cloud(rng, 48)
     m = cloud48[0]
@@ -157,13 +159,55 @@ def integrate_cases(seed=0):
     pts600 = (dense[0] + rng.normal(scale=0.05, size=dense[0].shape)
               ).astype(np.float32)
     cam = small_camera()
+    # a tight cluster in front of the top-left tile's rays and one Gaussian
+    # on the bottom-right tile, each with query points near it
+    centre = cam_point(cam, 8.0, 8.0, 7.667)
+    lone = cam_point(cam, 26.0, 26.0, 7.667)
+    long_ = make_gaussian_cloud(rng, 901, center=centre, spread=0.05,
+                                scale_range=(0.02, 0.04))
+    long_[0][-1] = lone
+    pts_long = np.concatenate([
+        long_[0][:64] + rng.normal(scale=0.03, size=(64, 3)),
+        lone[None] + [[0.0, 0.0, 0.01]]]).astype(np.float32)
     return [
         ("cloud48_mpt64", cam, cloud48, pts48,
          dict(pair_cap=1 << 12, max_per_tile=64, chunk=16, point_chunk=32)),
         ("cloud16_outside", cam, cloud16, pts16, dict(point_chunk=8)),
         ("dense600_mpt128", cam, dense, pts600,
          dict(pair_cap=1 << 14, max_per_tile=128, chunk=32, point_chunk=256)),
+        ("long_window", cam, long_, pts_long,
+         dict(pair_cap=1 << 14, max_per_tile=1024, chunk=128,
+              point_chunk=64)),
     ]
+
+
+LONG_WINDOW_SLICE = 64       # the forced slice length of the split runs
+
+
+def thin_integrate_case(seed=0):
+    """A field-query case of thin Gaussians, as integrate_cases gives
+    them: each of 300 has one scale 1e-4 to 1e-2 of the others, where the
+    f32 ray quadratic is ill-conditioned (two f32 evaluations differ there
+    beyond the JAX package's 2e-5, so it is no parity case); the query
+    points lie near the centres."""
+    rng = np.random.default_rng(seed + 7)
+    thin = make_gaussian_cloud(rng, 300, spread=0.3, scale_range=(0.03, 0.1))
+    thin[1][np.arange(300), rng.integers(0, 3, 300)] *= 10.0 ** rng.uniform(
+        -4, -2, 300).astype(np.float32)
+    pts = (thin[0] + rng.normal(scale=0.02, size=thin[0].shape)
+           ).astype(np.float32)
+    return ("thin300", small_camera(), thin, pts,
+            dict(pair_cap=1 << 14, max_per_tile=512, chunk=64,
+                 point_chunk=256))
+
+
+def cam_point(cam, px, py, depth):
+    """The world point at view depth `depth` on pixel (px, py)'s ray."""
+    u = (px - cam.width / 2.0) / cam.focal_x
+    v = (py - cam.height / 2.0) / cam.focal_y
+    view = np.array([u * depth, v * depth, depth, 1.0])
+    return (view @ np.linalg.inv(np.asarray(cam.world_view, np.float64))
+            )[:3].astype(np.float32)
 
 
 def mesh_case(name):
