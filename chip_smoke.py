@@ -178,15 +178,18 @@ GIVEN_MASK_TOL_TEXT = (
     "can flip")
 # the field query: the JAX package's own tolerance at 32^2
 # (tests/test_integrate.py:83); FP32 operations per (point, pair), counted
-# from csrc/integrate.cu:pair_factor (an FMA counts 2): 43 for a pair whose
-# alpha reaches 1/255, 37 for one that fails (its ray quadratic, 36, and a
-# compare of val against 2 ln(255 opa); no exp); the mesh path's bisection
-# steps (extract_mesh's binary_steps)
+# from csrc/integrate.cu (an FMA counts 2): 43 for a pair whose alpha
+# reaches 1/255 (pair_factor); 26 for one the rejection rules out
+# (surely_fails: a, |a|^2, a.b, Q, the compare); 37 for one that fails
+# 1/255 but escapes the rejection, which needs its ray quadratic (36) and
+# a compare of val against 2 ln(255 opa), no exp, to be known to fail;
+# the mesh path's bisection steps (extract_mesh's binary_steps)
 INTEGRATE_TOL = 2e-5
-OPS_PER_PAIR_INTEGRATE = 43      # csrc/integrate.cu: the full evaluation
-OPS_PER_FAILING_INTEGRATE = 26   # the pairs its rejection rules out
-# the field query's kernels: the kernel and its second pass, the plan and
-# the prep (csrc/integrate.cu, csrc/integrate_prep.cu)
+OPS_PER_PAIR_INTEGRATE = 43
+OPS_PER_REJECTED_INTEGRATE = 26
+OPS_PER_FAILING_INTEGRATE = 37
+# the field query's kernels (csrc/integrate.cu): the field and its second
+# pass, the plan and the prep
 FIELD_KERNELS = ("integrate_kernel", "combine_kernel", "plan_kernel",
                  "prep_kernel")
 MESH_STEPS = 8
@@ -1597,8 +1600,8 @@ def plan_shape(tile, inside, tile_count, max_per_tile, slice_len):
     pairs over the pairs the lanes walk (blocks of 128 points, one a lane,
     before; now warps of 32 points, skipped where empty); and the heaviest
     item's pairs against the mean (whole windows per 128-point block
-    before; now windows cut into slices of slice_len rows per block of
-    integrate.POINTS_PER_ITEM points)."""
+    before; now windows cut into slices of integrate.slice_rows(window,
+    slice_len) rows per block of integrate.POINTS_PER_ITEM points)."""
     import torch
     from f3d_gaus_torch.ops import integrate as TI
 
@@ -1617,8 +1620,9 @@ def plan_shape(tile, inside, tile_count, max_per_tile, slice_len):
         if not sliced:
             heavy, count = size * window, blocks
         else:
-            slices = torch.clamp_min(torch.ceil(window / slice_len), 1)
-            heavy, count = size * torch.clamp_max(window, slice_len), \
+            rows = TI.slice_rows(window, slice_len)
+            slices = torch.clamp_min(torch.ceil(window / rows), 1)
+            heavy, count = size * torch.clamp_max(window, rows), \
                 blocks * slices
         n = max(float(count.sum()), 1.0)
         return {"items": int(n), "heaviest_pairs": float(heavy.max()),
@@ -1817,8 +1821,9 @@ def integrate_timing(mesh, args, dev, card):
                 and a["share_above_1e3"] <= ANCHOR_SHARE, a)
 
     # the work this view's data needs: each inside point against each slot
-    # of its tile's window, those whose alpha fails 1/255 charged
-    # OPS_PER_FAILING_INTEGRATE; the bytes: the points' u, v, depth and
+    # of its tile's window, charged by what it takes to settle the pair:
+    # the rejection, else the quadratic and a compare where alpha fails
+    # 1/255, else the whole evaluation; the bytes: the points' u, v, depth and
     # sorted index read and their field written once, the window ids and
     # the 13-float row of each Gaussian in them (tiles that hold points),
     # and the tiles' offsets, counts and segment starts
@@ -1826,8 +1831,10 @@ def integrate_timing(mesh, args, dev, card):
     require(work["rejected_passing"] == 0,
             f"the rejection ruled out a passing pair: {work}")
     pairs = work["pairs"]
-    ops = (work["rejected"] * OPS_PER_FAILING_INTEGRATE
-           + (pairs - work["rejected"]) * OPS_PER_PAIR_INTEGRATE)
+    escaped = pairs - work["passing"] - work["rejected"]
+    ops = (work["rejected"] * OPS_PER_REJECTED_INTEGRATE
+           + escaped * OPS_PER_FAILING_INTEGRATE
+           + work["passing"] * OPS_PER_PAIR_INTEGRATE)
     tiles_in = q.tile.long()[q.inside]
     occupied = torch.unique(tiles_in)
     gids, valid, _ = R._gather_windows(pre.opa_coef[:, None], bng.point_list,
@@ -1849,13 +1856,14 @@ def integrate_timing(mesh, args, dev, card):
                 rejected_pairs=work["rejected"],
                 failing_share=1 - work["passing"] / max(pairs, 1),
                 rejected_share=work["rejected"] / max(pairs, 1),
+                escaped_share=escaped / max(pairs, 1),
                 plan_shape=plan_shape(q.tile, q.inside, bng.tile_count, mpt,
                                       TI.SLICE_LEN),
                 split_tiles=int(((twin.item_start[1:] - twin.item_start[:-1])
                                  > torch.ceil((twin.seg_start[1:]
                                                - twin.seg_start[:-1])
                                               / TI.POINTS_PER_ITEM)).sum()),
-                ms=ms, ms_without_sort=launch_ms, prep_ms=prep_ms,
+                ms=ms, ms_given_prep_and_sort=launch_ms, prep_ms=prep_ms,
                 sort_ms=sort_ms, kernel_device_ms=kernel_us / 1e3,
                 device_ms_by_kernel={
                     next((n for n in FIELD_KERNELS if n in r["op"]),
@@ -2103,19 +2111,33 @@ def scene_path(args, dev, card):
     first, last = float(np.mean(loss[:w])), float(np.mean(loss[-w:]))
     alive = [SCENE_INIT] + [d["alive"] for d in hist["densify"]]
 
-    # the init scene on the same test views, through the same metric
+    # the init scene on the same test views, through the same metric: at
+    # caps planned for it at those views, which truncate none of its
+    # renders, and at the config's fixed caps (the JAX package's)
     init = PS.init_scene(data.points, data.colors, cfg, device=dev)
-    rdir = os.path.join(work, "init_renders")
-    os.makedirs(rdir)
-    for sc in test_cams:
-        with torch.no_grad():
-            r = PS.render_scene(init, sc.camera, cfg, torch.zeros(3,
-                                                                  device=dev),
-                                cfg.sh_degree)
-        FE._save_png(os.path.join(rdir, os.path.splitext(sc.name)[0]
-                                  + ".png"), r["render"].cpu().numpy())
-    init_m = EV.evaluate_dirs(rdir, os.path.join(out, "synthetic", "test",
-                                                 "gt"), device=dev)["mean"]
+    init_caps = PS.plan_caps(PS.needed_caps(
+        init, [sc.camera for sc in test_cams], cfg), PS.PerSceneConfig())
+    init_scores = {}
+    for name, rcfg in (("planned", cfg._replace(**init_caps)),
+                       ("fixed", PS.PerSceneConfig())):
+        rdir = os.path.join(work, f"init_renders_{name}")
+        os.makedirs(rdir)
+        truncated = 0
+        for sc in test_cams:
+            with torch.no_grad():
+                r = PS.render_scene(init, sc.camera, rcfg,
+                                    torch.zeros(3, device=dev), cfg.sh_degree)
+            truncated += int(r["overflow"])
+            FE._save_png(os.path.join(rdir, os.path.splitext(sc.name)[0]
+                                      + ".png"), r["render"].cpu().numpy())
+        init_scores[name] = {
+            **EV.evaluate_dirs(rdir, os.path.join(out, "synthetic", "test",
+                                                  "gt"), device=dev)["mean"],
+            "truncated_renders": truncated,
+            "caps": {k: getattr(rcfg, k) for k in ("pair_cap",
+                                                   "max_per_tile")}}
+    init_m = init_scores["planned"]
+    require(init_m["truncated_renders"] == 0, f"init renders {init_scores}")
     del init
 
     # the step split at the fitted scene (the counted run is over)
@@ -2165,6 +2187,7 @@ def scene_path(args, dev, card):
          loss_first_100=first, loss_last_100=last,
          test_psnr=summary["test_psnr"], test_ssim=summary["test_ssim"],
          init_psnr=init_m["psnr"], init_ssim=init_m["ssim"],
+         init_scene_by_caps=init_scores,
          overflow_steps=hist["overflow_steps"],
          overflow_test_renders=summary["overflow_test_renders"],
          final_gaussians=summary["final_gaussians"],
@@ -2341,8 +2364,7 @@ def main(argv=None) -> int:
     }, {
         "name": "integrate", "route": "cuda",
         "source": csrc + "integrate.cu",
-        "sources": [csrc + "integrate.cu", csrc + "integrate_prep.cu",
-                    csrc + "gof_pair.cuh"],
+        "sources": [csrc + "integrate.cu", csrc + "gof_pair.cuh"],
         "replaces": "f3d_gaus_tpu/ops/integrate.py:82",
         "launches": mesh["launches"]["integrate"],
         "launches_by_path": {"serving": 0, "training": 0,
@@ -2359,19 +2381,23 @@ def main(argv=None) -> int:
               f"P={field['P']}, {field['seed_points']} seed points, "
               f"{mesh['n_views']} x (1 + {MESH_STEPS}) launches per mesh; "
               "ms includes the wrapper's row packing and its sort of the "
-              "points into the item plan (ms_without_sort: the launch given "
-              "them; kernel_device_ms: the kernel and its second pass on "
-              "the device's clock); max_abs_err at that "
+              "points into the item plan (ms_given_prep_and_sort: the "
+              "launch of the plan, the field and its second pass given "
+              "them; kernel_device_ms: the field query's kernels on the "
+              "device's clock); max_abs_err at that "
               "view against the plain version, one view's field and the "
               "running minimum into a seeded field (on the 32^2 cases "
               f"{integrate_small_err:.3g} at two slice lengths, tolerance "
               f"{INTEGRATE_TOL}); bound_ms charges the pairs the kernel's "
-              f"rejection rules out {OPS_PER_FAILING_INTEGRATE} operations, "
-              f"the rest {OPS_PER_PAIR_INTEGRATE}",
+              f"rejection rules out {OPS_PER_REJECTED_INTEGRATE} "
+              f"operations, the other pairs whose alpha fails 1/255 "
+              f"{OPS_PER_FAILING_INTEGRATE}, the rest "
+              f"{OPS_PER_PAIR_INTEGRATE}",
         "kernel_device_ms": field["kernel_device_ms"],
-        "ms_without_sort": field["ms_without_sort"],
+        "ms_given_prep_and_sort": field["ms_given_prep_and_sort"],
         "pairs": field["pairs"], "failing_share": field["failing_share"],
         "rejected_share": field["rejected_share"],
+        "escaped_share": field["escaped_share"],
         "lane_efficiency": field["plan_shape"]["lane_efficiency"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,8 +6,9 @@
 // XLA (there is no Pallas kernel for it); in the CUDA reference it is
 // integrateCUDA.  Its plain PyTorch version is
 // f3d_gaus_torch/ops/integrate.py:_alpha_impl; the wrapper is
-// f3d_gaus_torch/ops/cuda_raster.py:integrate, and the item plan it
-// launches with is ops/integrate.py:_integrate_items.
+// f3d_gaus_torch/ops/cuda_raster.py:integrate, and the plain versions of
+// its preparation and item plan are ops/integrate.py:_pack_rows,
+// _point_keys and _integrate_items.
 //
 // What it computes: for each query point, the product T of (1 - alpha)
 // over the Gaussians of its tile's window min(tile_count, max_per_tile),
@@ -46,36 +47,49 @@
 //    multiplies T by 1 as a failing one did, so wherever a window is not
 //    split the field is bit for bit the first design's.  Rejecting costs
 //    26 operations (a 12, |a|^2 5, a.b 5, Q 3, the compare), the full
-//    evaluation 43 (integrate.py:_pair_rejected is its f32 mirror;
-//    chip_smoke.py counts from the data which pairs take which).
+//    evaluation 43; a pair that fails 1/255 but escapes the rejection
+//    needs only its quadratic and a compare (37) to be known to fail.
+//    integrate.py:_pair_rejected is the rejection's f32 mirror, and
+//    chip_smoke.py counts from the data which pairs are which.
 //  * Each thread holds 4 points (register blocking: one staged row serves
 //    4 pairs), takes the rejection of all 4 at once, so that the four
 //    chains interleave, and branches to the full evaluation only where a
 //    lane keeps a pair.  The lanes of a warp take that branch together;
 //    the points are sorted by tile and, inside a tile, in Morton order of
-//    their rays (csrc/integrate_prep.cu), so that a warp's 32 points lie
+//    their rays (prep_kernel's keys), so that a warp's 32 points lie
 //    within a few pixels and mostly agree.
-//  * Rows are packed once per view (csrc/integrate_prep.cu) into a
-//    (P + 1, 16) f32 table (M 9, b 3, opa, |b|^2 - thr_row, padding; row P
-//    a sentinel of opacity 0) and staged with cp.async 16-byte copies, four
-//    per row, into a double buffer, so the gather of batch k + 1 overlaps
-//    the arithmetic of batch k.  TMA cannot gather rows by index; cp.async
-//    is the copy engine for a gather.
+//  * Rows are packed once per view (prep_kernel) into a (P + 1, 16) f32
+//    table (M 9, b 3, opa, |b|^2 - thr_row, padding) and staged with
+//    cp.async 16-byte copies, four per row, into a double buffer, so the
+//    gather of batch k + 1 overlaps the arithmetic of batch k.  TMA cannot
+//    gather rows by index; cp.async is the copy engine for a gather.  Row
+//    P, which an id outside [0, P) reads, is a sentinel of opacity 0 and
+//    threshold -inf with a = (1, 1, 1) for every ray, so the rejection
+//    rules out each of its pairs (with a = 0 its test would be 0 inf =
+//    NaN, which is not > 0).
 //  * Items: one CTA of 128 threads takes one (segment, block of 512
-//    points, window slice of slice_len rows) item.  A window longer than
-//    slice_len is cut into slices so that no CTA carries a tile's whole
-//    window; each slice writes its partial products, and a second small
-//    kernel multiplies them in slice order and applies the running minimum
-//    (no atomics on the field: the same result on every launch).  The plan
-//    is computed on the card (plan_kernel; integrate.py:_integrate_items
-//    is its plain version) and the grid is persistent, each CTA taking the
-//    next item from one counter, so the launch needs no host sync and no
-//    CTA carries a tail of heavy items.
+//    points, window slice) item.  A window of n rows is cut into slices of
+//    max(slice_len, ceil(n / max_slices)) rows, so that the items are
+//    many enough to fill the card's waves and a long window is spread over
+//    several CTAs, while a view keeps at most max_slices partial products
+//    per point; each slice of a split window writes its partial products,
+//    and a second small kernel multiplies them in slice order and applies
+//    the running minimum (no atomics on the field: the same result on
+//    every launch).  The plan is computed on the card (plan_kernel) and the
+//    grid is persistent, each CTA taking the next item from one counter,
+//    so the launch needs no host sync and no CTA carries a tail of heavy
+//    items.
 //  * No tensor cores: the field is an f32 product held at 2e-5 against the
 //    plain version, with a clamp that depends on each point's depth;
 //    TF32 or bf16 monomials would break that.
 
-#include <cuda_runtime.h>
+// Three entry points: f3d_integrate_prep (the row table and the points'
+// sort keys in one launch, in place of the dozens of small PyTorch
+// operations that would otherwise cost the host more than the card), then,
+// after the wrapper's torch.sort of the keys, f3d_integrate (the plan, the
+// field and the second pass).
+
+#include "gof_pair.cuh"
 
 namespace {
 
@@ -85,6 +99,8 @@ constexpr int kItemPoints = kThreads * kPerThread;   // points per item
 constexpr int kBatch = 128;      // window rows staged per step
 constexpr int kRow = 16;         // floats per packed row
 constexpr float kAlphaEps = 1.0f / 255.0f;
+constexpr float kKappa = 4e-6f;      // integrate.py:REJECT_KAPPA
+constexpr float kKeyRange = 2.0f;    // integrate.py:KEY_RANGE
 
 struct Params {
   const float* rows;        // (P + 1, 16): M, b, opa, |b|^2 - thr_row, 0, 0
@@ -94,7 +110,8 @@ struct Params {
   int num_tiles;
   int num_gaussians;        // P
   int max_per_tile;
-  int slice_len;            // window rows per item
+  int slice_len;            // least window rows per item
+  int max_slices;           // most slices per window
   const long long* perm;    // (Q,) sorted position -> point
   const int* seg_start;     // (T + 2,) first sorted position of segment s
   const int* item_start;    // (T + 2,) first item of segment s
@@ -107,6 +124,19 @@ struct Params {
   int running_min;          // 0: out = 1 - T; 1: out = min(out, 1 - T)
   int* next_item;           // the items' counter, zeroed by the plan
 };
+
+// the rows of each slice of a window of n rows: slice_len, or more where
+// that would cut the window into more than max_slices slices
+__device__ __forceinline__ int slice_rows(int n, int slice_len,
+                                          int max_slices) {
+  return max(slice_len, (n + max_slices - 1) / max_slices);
+}
+
+__device__ __forceinline__ int num_slices(int n, int slice_len,
+                                          int max_slices) {
+  const int len = slice_rows(n, slice_len, max_slices);
+  return max(1, (n + len - 1) / len);
+}
 
 // the last segment s with starts[s] <= x (segments that own nothing share
 // their start with the next and are passed over)
@@ -145,8 +175,8 @@ constexpr int kPlanThreads = 1024;   // 32 warps: one scan level each
 __global__ void __launch_bounds__(kPlanThreads) plan_kernel(
     const int* __restrict__ keys, int num_points, int shift,
     const int* __restrict__ tile_count, int num_tiles, int max_per_tile,
-    int slice_len, int* seg_start, int* item_start, int* part_start,
-    int* next_item) {
+    int slice_len, int max_slices, int* seg_start, int* item_start,
+    int* part_start, int* next_item) {
   __shared__ int sums[2][32];
   if (threadIdx.x == 0) *next_item = 0;
   const int nseg = num_tiles + 1;
@@ -167,7 +197,7 @@ __global__ void __launch_bounds__(kPlanThreads) plan_kernel(
   for (int s = s0; s < s1; ++s) {
     const int n_pts = seg_start[s + 1] - seg_start[s];
     const int window = s < num_tiles ? min(tile_count[s], max_per_tile) : 0;
-    const int slices = max(1, (window + slice_len - 1) / slice_len);
+    const int slices = num_slices(window, slice_len, max_slices);
     items += (n_pts + kItemPoints - 1) / kItemPoints * slices;
     parts += slices > 1 ? slices * n_pts : 0;
   }
@@ -215,7 +245,7 @@ __global__ void __launch_bounds__(kPlanThreads) plan_kernel(
     part_start[s] = parts;
     const int n_pts = seg_start[s + 1] - seg_start[s];
     const int window = s < num_tiles ? min(tile_count[s], max_per_tile) : 0;
-    const int slices = max(1, (window + slice_len - 1) / slice_len);
+    const int slices = num_slices(window, slice_len, max_slices);
     items += (n_pts + kItemPoints - 1) / kItemPoints * slices;
     parts += slices > 1 ? slices * n_pts : 0;
   }
@@ -350,8 +380,9 @@ __global__ void __launch_bounds__(kThreads) integrate_kernel(const Params p) {
     const bool tile = seg < p.num_tiles;   // else the outside segment
     const int n = tile ? min(p.tile_count[seg], p.max_per_tile) : 0;
     const int start = tile ? p.tile_start[seg] : 0;
-    const int r_lo = slice * p.slice_len;
-    const int r_hi = min(n, r_lo + p.slice_len);
+    const int len = slice_rows(n, p.slice_len, p.max_slices);
+    const int r_lo = slice * len;
+    const int r_hi = min(n, r_lo + len);
     __syncthreads();   // the previous item's rows are free
     if (r_lo < r_hi) stage(p, rows[0], start, r_lo, min(kBatch, r_hi - r_lo));
     for (int b0 = r_lo, buf = 0; b0 < r_hi; b0 += kBatch, buf ^= 1) {
@@ -403,10 +434,94 @@ __global__ void __launch_bounds__(256) combine_kernel(const Params p,
   p.out[q] = finish(p.out[q], T, p.running_min);
 }
 
+// The preparation: thread i <= P writes row i of the (P + 1, 16) table:
+// M (9), b (3), opa, |b|^2 - thr_row with thr_row =
+// gof_pair.cuh:reject_threshold(opa) + kappa |b|^2, 0, 0; row P is the
+// sentinel (the header).  Thread i < Q writes point i's key: its segment
+// (its tile if inside, else T) above a Morton code of its ray (u, v), each
+// quantised to 2^key_bits levels over [-2, 2).  Bound by bytes (a row
+// written per Gaussian, a key per point); trivial beside the field.
+__device__ __forceinline__ unsigned spread_bits(unsigned x) {
+  x &= 0xffffu;
+  x = (x | (x << 8)) & 0x00ff00ffu;
+  x = (x | (x << 4)) & 0x0f0f0f0fu;
+  x = (x | (x << 2)) & 0x33333333u;
+  x = (x | (x << 1)) & 0x55555555u;
+  return x;
+}
+
+__device__ __forceinline__ unsigned quantise(float x, int bits) {
+  const float levels = (float)(1 << bits);
+  const float q = floorf(__fmul_rn(__fadd_rn(x, kKeyRange),
+                                   levels / (2.0f * kKeyRange)));
+  return (unsigned)fminf(fmaxf(q, 0.0f), levels - 1.0f);
+}
+
+__global__ void prep_kernel(const float* __restrict__ mb,
+                            const float* __restrict__ opa, int num_gaussians,
+                            const float* __restrict__ u,
+                            const float* __restrict__ v,
+                            const int* __restrict__ tile,
+                            const unsigned char* __restrict__ inside,
+                            int num_points, int num_tiles, int key_bits,
+                            float* __restrict__ rows, int* __restrict__ keys) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i <= num_gaussians) {
+    float r[16];
+    if (i < num_gaussians) {
+      const float* m = mb + (long long)i * 12;
+#pragma unroll
+      for (int c = 0; c < 12; ++c) r[c] = m[c];
+      r[12] = opa[i];
+      const float b2 = __fadd_rn(__fadd_rn(__fmul_rn(r[9], r[9]),
+                                           __fmul_rn(r[10], r[10])),
+                                 __fmul_rn(r[11], r[11]));
+      const float thr = __fadd_rn(gof::reject_threshold(r[12]),
+                                  __fmul_rn(kKappa, b2));
+      r[13] = __fsub_rn(b2, thr);
+    } else {   // the sentinel: a = (1, 1, 1), opacity 0, threshold -inf
+#pragma unroll
+      for (int c = 0; c < 13; ++c)
+        r[c] = (c == 2 || c == 5 || c == 8) ? 1.0f : 0.0f;
+      r[13] = __int_as_float(0x7f800000);   // +inf
+    }
+    r[14] = r[15] = 0.0f;
+    float4* dst = reinterpret_cast<float4*>(rows + (long long)i * 16);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      dst[c] = make_float4(r[4 * c], r[4 * c + 1], r[4 * c + 2], r[4 * c + 3]);
+  }
+  if (i < num_points) {
+    int key = num_tiles << (2 * key_bits);
+    if (inside[i]) {
+      key = (tile[i] << (2 * key_bits)) |
+            (int)(spread_bits(quantise(u[i], key_bits)) |
+                  (spread_bits(quantise(v[i], key_bits)) << 1));
+    }
+    keys[i] = key;
+  }
+}
+
 }  // namespace
 
-// Plain C interface for ctypes.  Launches on `stream` and does not
-// synchronise; returns cudaGetLastError() (0 = launched).  Three kernels:
+// Plain C interface for ctypes.  Each launches on `stream` and does not
+// synchronise; returns cudaGetLastError() (0 = launched).
+extern "C" int f3d_integrate_prep(
+    int device, const float* mb, const float* opa, int num_gaussians,
+    const float* u, const float* v, const int* tile,
+    const unsigned char* inside, int num_points, int num_tiles, int key_bits,
+    float* rows, int* keys, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int n = num_gaussians + 1 > num_points ? num_gaussians + 1
+                                               : num_points;
+  prep_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      mb, opa, num_gaussians, u, v, tile, inside, num_points, num_tiles,
+      key_bits, rows, keys);
+  return (int)cudaGetLastError();
+}
+
+// Three kernels:
 // the plan (from the points' sorted keys and their order `perm`, into
 // `plan`, 3 (T + 2) + 1 ints: segment, item and partial-product starts
 // and the items' counter), the
@@ -416,8 +531,9 @@ __global__ void __launch_bounds__(256) combine_kernel(const Params p,
 extern "C" int f3d_integrate(
     int device, const float* rows, const int* point_list,
     const int* tile_start, const int* tile_count, int num_tiles,
-    int num_gaussians, int max_per_tile, int slice_len, const int* keys,
-    const long long* perm, int key_shift, int* plan, const float* u,
+    int num_gaussians, int max_per_tile, int slice_len, int max_slices,
+    const int* keys, const long long* perm, int key_shift, int* plan,
+    const float* u,
     const float* v, const float* depth, float* part, float* out,
     int running_min, int num_points, int max_items, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -430,7 +546,7 @@ extern "C" int f3d_integrate(
   int* next_item = plan + 3 * nplan;
   plan_kernel<<<1, kPlanThreads, 0, (cudaStream_t)stream>>>(
       keys, num_points, key_shift, tile_count, num_tiles, max_per_tile,
-      slice_len, seg_start, item_start, part_start, next_item);
+      slice_len, max_slices, seg_start, item_start, part_start, next_item);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   int sms = 0, per_sm = 0;
@@ -442,7 +558,7 @@ extern "C" int f3d_integrate(
   const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
   const int grid = (int)(max_items < resident ? max_items : resident);
   Params p{rows,       point_list, tile_start,    tile_count,
-           num_tiles,  num_gaussians, max_per_tile, slice_len,
+           num_tiles,  num_gaussians, max_per_tile, slice_len, max_slices,
            perm,       seg_start,  item_start,    part_start,
            u,          v,          depth,         part,
            out,        running_min, next_item};

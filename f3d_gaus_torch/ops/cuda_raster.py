@@ -2,8 +2,7 @@
 kernels csrc/gof_decide.cu, csrc/raster_fwd.cu and csrc/raster_bwd.cu,
 which all include csrc/gof_pair.cuh (counterpart of
 f3d_gaus_tpu/ops/pallas_raster.py), and of the opacity-field query
-csrc/integrate_prep.cu + csrc/integrate.cu (counterpart of
-f3d_gaus_tpu/ops/integrate.py).
+csrc/integrate.cu (counterpart of f3d_gaus_tpu/ops/integrate.py).
 
 Each kernel source is compiled with nvcc for sm_90a into a shared library
 with a plain C interface at the first CUDA call (all at once, one nvcc
@@ -37,11 +36,11 @@ from . import rasterize as R
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {"decide": CSRC / "gof_decide.cu", "fwd": CSRC / "raster_fwd.cu",
-           "bwd": CSRC / "raster_bwd.cu", "integrate": CSRC / "integrate.cu",
-           "integrate_prep": CSRC / "integrate_prep.cu"}
-ENTRY = {"decide": "f3d_gof_decide", "fwd": "f3d_raster_fwd",
-         "bwd": "f3d_raster_bwd", "integrate": "f3d_integrate",
-         "integrate_prep": "f3d_integrate_prep"}
+           "bwd": CSRC / "raster_bwd.cu", "integrate": CSRC / "integrate.cu"}
+# each library's C entry points, in the order its source defines them
+ENTRY = {"decide": ("f3d_gof_decide",), "fwd": ("f3d_raster_fwd",),
+         "bwd": ("f3d_raster_bwd",),
+         "integrate": ("f3d_integrate_prep", "f3d_integrate")}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -84,24 +83,25 @@ def build_key(csrc: Path = CSRC, flags=NVCC_FLAGS) -> str:
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = {
-    "decide": [_I, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _P, _P],
-    "fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _P,
-            _P, _P, _P, _P, _P, _P, _P, _P],
-    "bwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _P, _P,
-            _P, _P, _P, _P, _P, _P, _P],
-    "integrate": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P,
-                  _P, _P, _P, _P, _I, _I, _I, _P],
-    "integrate_prep": [_I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P,
-                       _P],
+_ARGTYPES = {   # by entry point
+    "f3d_gof_decide": [_I, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I,
+                       _P, _P],
+    "f3d_raster_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I,
+                       _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "f3d_raster_bwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
+                       _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "f3d_integrate_prep": [_I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P,
+                           _P, _P],
+    "f3d_integrate": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I,
+                      _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
 def load(rebuild: bool = False) -> dict:
     """Build (once per build_key, or anew with `rebuild`) and load the
     kernel libraries: {'decide': CDLL, 'fwd': CDLL, 'bwd': CDLL,
-    'integrate': CDLL, 'integrate_prep': CDLL}.  The nvcc
-    runs go in parallel; any failure raises with its log."""
+    'integrate': CDLL}.  The nvcc runs go in parallel; any failure raises
+    with its log."""
     global _libs, build_log
     if _libs is not None and not rebuild:
         return _libs
@@ -131,9 +131,10 @@ def load(rebuild: bool = False) -> dict:
     libs = {}
     for name, so in sos.items():
         lib = ctypes.CDLL(str(so))
-        fn = getattr(lib, ENTRY[name])
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = _I
+        for entry in ENTRY[name]:
+            fn = getattr(lib, entry)
+            fn.argtypes = _ARGTYPES[entry]
+            fn.restype = _I
         libs[name] = lib
     _libs = libs
     return libs
@@ -301,9 +302,10 @@ def integrate(v2g_mb, opa, point_list, tile_start, tile_count, u, v, depth,
     One launch packs the rows (with the rejection's per-row threshold)
     and the points' sort keys (integrate_prep), torch.sort orders the
     points by key, and one more launches the plan kernel (blocks of 512
-    points, windows cut into slices of `slice_len` rows, default
-    integrate.SLICE_LEN; integrate._integrate_items is its plain version),
-    the field and its second pass for the split windows.  No host sync."""
+    points, windows cut into slices of at least `slice_len` rows, default
+    integrate.SLICE_LEN, and at most integrate.MAX_SLICES slices;
+    integrate._integrate_items is its plain version), the field and its
+    second pass for the split windows.  No host sync."""
     global launches_integrate
     from . import integrate as TI
     P = v2g_mb.shape[0]
@@ -345,14 +347,15 @@ def integrate(v2g_mb, opa, point_list, tile_start, tile_count, u, v, depth,
 
 def integrate_prep(v2g_mb, opa, u, v, tile, inside, num_tiles: int):
     """The field query's row table and sort keys in one launch of
-    csrc/integrate_prep.cu (the plain versions integrate._pack_rows and
-    _point_keys): ((P + 1, 16) f32, (Q,) int32).  On checked tensors."""
+    csrc/integrate.cu's prep kernel (the plain versions integrate.
+    _pack_rows and _point_keys): ((P + 1, 16) f32, (Q,) int32).  On
+    checked tensors."""
     from . import integrate as TI
     dev, P, Q = v2g_mb.device, v2g_mb.shape[0], u.shape[0]
     rows = torch.empty((P + 1, 16), dtype=torch.float32, device=dev)
     keys = torch.empty(Q, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = load()["integrate_prep"].f3d_integrate_prep(
+    err = load()["integrate"].f3d_integrate_prep(
         _device_index(dev), v2g_mb.data_ptr(), opa.data_ptr(), P,
         u.data_ptr(), v.data_ptr(), tile.data_ptr(), inside.data_ptr(), Q,
         num_tiles, TI.key_bits(num_tiles), rows.data_ptr(), keys.data_ptr(),
@@ -385,8 +388,9 @@ def _integrate_launch(rows, keys, perm, point_list, tile_start, tile_count,
     err = load()["integrate"].f3d_integrate(
         _device_index(dev), rows.data_ptr(), point_list.data_ptr(),
         tile_start.data_ptr(), tile_count.data_ptr(), T, rows.shape[0] - 1,
-        max_per_tile, slice_len, keys.data_ptr(), perm.data_ptr(),
-        2 * TI.key_bits(T), plan.data_ptr(), u.data_ptr(), v.data_ptr(),
+        max_per_tile, slice_len, TI.MAX_SLICES, keys.data_ptr(),
+        perm.data_ptr(), 2 * TI.key_bits(T), plan.data_ptr(), u.data_ptr(),
+        v.data_ptr(),
         depth.data_ptr(), part.data_ptr(), out.data_ptr(), int(running_min),
         Q, max_items, stream)
     if err != 0:

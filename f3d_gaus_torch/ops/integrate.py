@@ -10,10 +10,10 @@ product's order does not matter.  Points outside the image or in front of
 the near plane get alpha 0.
 
 Two implementations of the per-view product:
-  * the hand-written CUDA kernels csrc/integrate_prep.cu (the row table
-    and the points' sort keys) and csrc/integrate.cu (the item plan, the
-    field with its division- and exp-free rejection of the pairs that
-    cannot reach 1/255, and the second pass of split windows), through
+  * the hand-written CUDA kernels of csrc/integrate.cu (the row table
+    and the points' sort keys, the item plan, the field with its
+    division- and exp-free rejection of the pairs that cannot reach
+    1/255, and the second pass of split windows), through
     ops/cuda_raster.py:integrate, which every query on CUDA tensors goes
     through; their plain versions here are _pack_rows, _point_keys,
     _integrate_items and _pair_rejected (the rejection's f32 mirror);
@@ -44,7 +44,8 @@ BLOCK = B.BLOCK
 # per unit |b|^2 (argued in csrc/integrate.cu's header)
 REJECT_KAPPA = 4e-6
 POINTS_PER_ITEM = 512      # csrc/integrate.cu:kItemPoints
-SLICE_LEN = 256            # window rows per kernel item
+SLICE_LEN = 128            # least window rows per kernel item
+MAX_SLICES = 8             # most slices per window (partial products a point)
 KEY_RANGE = 2.0            # ray coordinates the sort key resolves
 
 overflow_views = 0        # views with a truncated binning since the last reset
@@ -131,12 +132,14 @@ def _pair_alpha(rows, u, v, ray_depth):
 
 def _pack_rows(v2g_mb, opa):
     """The kernel's (P + 1, 16) f32 row table, the plain version of
-    csrc/integrate_prep.cu's: M (9), b (3), opa, |b|^2 - thr_row with
-    thr_row = reject_threshold(opa) + REJECT_KAPPA |b|^2, two zeros; row P
-    is a sentinel of opacity 0.  reject_threshold is csrc/gof_pair.cuh's:
-    2 ln(opa / (1/255)) raised by 1e-4 relative and 2e-3 absolute, -inf
-    below an opacity of 1/255 (so the column is +inf and every pair with
-    the row is rejected)."""
+    csrc/integrate.cu:prep_kernel's: M (9), b (3), opa, |b|^2 - thr_row
+    with thr_row = reject_threshold(opa) + REJECT_KAPPA |b|^2, two zeros.
+    reject_threshold is csrc/gof_pair.cuh's: 2 ln(opa / (1/255)) raised by
+    1e-4 relative and 2e-3 absolute, -inf below an opacity of 1/255 (so
+    the column is +inf and every pair of the row with a ray of nonzero
+    |a| is rejected).  Row P, read for ids outside [0, P), is a sentinel
+    of opacity 0 whose M gives a = (1, 1, 1) on every ray, so that all its
+    pairs are rejected too (a = 0 would make the test 0 inf = NaN)."""
     P = v2g_mb.shape[0]
     eps = torch.tensor(ALPHA_EPS, dtype=torch.float32)
     thr = (2.0 * torch.log(opa / eps)) * 1.0001 + 2e-3
@@ -147,6 +150,7 @@ def _pack_rows(v2g_mb, opa):
     rows[:P, :12] = v2g_mb
     rows[:P, 12] = opa
     rows[:P, 13] = b2 - (thr + REJECT_KAPPA * b2)
+    rows[P, [2, 5, 8]] = 1.0
     rows[P, 13] = float("inf")
     return rows
 
@@ -156,7 +160,14 @@ def _pair_rejected(rows, u, v):
     surely_fails): True where |a|^2 (|b|^2 - thr_row) - (a.b)^2 > 0, that
     is |a x b|^2 > |a|^2 thr_row, which implies alpha < 1/255.  rows:
     (Q or 1, C, 16) packed rows (_pack_rows); u, v: (Q,).  `a` is computed
-    as _pair_alpha computes it.  Returns (Q, C) bool."""
+    as _pair_alpha computes it.  Returns (Q, C) bool.
+
+    Not the kernel's decision bit for bit: the kernel takes Q in one fused
+    multiply-add and nvcc contracts a, |a|^2 and a.b into FMAs, where each
+    product here is rounded.  Both roundings lie inside the margin the
+    kernel's header argues (the 15 eps |a|^2 (|b|^2 + thr_row) it allows
+    for Q's rounding, within kappa's 67 eps), so a pair this mirror keeps
+    on the margin's edge the kernel may rule out, and only such a pair."""
     m = rows.unbind(-1)
     U, V = u[:, None], v[:, None]
     a = [m[3 * k] * U + m[3 * k + 1] * V + m[3 * k + 2] for k in range(3)]
@@ -213,12 +224,12 @@ def _integrate_items(tile, inside, u, v, tile_count, max_per_tile: int,
     """The kernel's item plan in torch ops, the plain version of
     csrc/integrate.cu:plan_kernel with the keys of _point_keys.  The points
     are sorted by key (by segment, Morton order inside a tile).  Segment s
-    has ceil(n_pts / per_item) point blocks and max(1, ceil(window /
-    slice_len)) window slices, window = min(tile_count, max_per_tile) (0
-    outside); its items are its (slice, block)s, block fastest, so that
-    neighbouring CTAs read the same rows.  A segment of more than one slice
-    keeps slices x n_pts partial products from part_start[s] on,
-    slice-major."""
+    has ceil(n_pts / per_item) point blocks and its window, window =
+    min(tile_count, max_per_tile) (0 outside), cut into slices of
+    slice_rows(window, slice_len) rows, at most MAX_SLICES of them; its
+    items are its (slice, block)s, block fastest, so that neighbouring
+    CTAs read the same rows.  A segment of more than one slice keeps
+    slices x n_pts partial products from part_start[s] on, slice-major."""
     T = tile_count.shape[0]
     dev = tile.device
     keys, perm = torch.sort(_point_keys(tile, inside, u, v, T))
@@ -228,7 +239,8 @@ def _integrate_items(tile, inside, u, v, tile_count, max_per_tile: int,
     n_pts = seg_start[1:] - seg_start[:-1]
     window = torch.cat([torch.clamp_max(tile_count, max_per_tile),
                         tile_count.new_zeros(1)]).to(seg_start.dtype)
-    slices = torch.clamp_min((window + slice_len - 1) // slice_len, 1)
+    rows = slice_rows(window, slice_len)
+    slices = torch.clamp_min((window + rows - 1) // rows, 1)
     items = (n_pts + per_item - 1) // per_item * slices
     parts = torch.where(slices > 1, slices * n_pts, 0)
 
@@ -240,10 +252,22 @@ def _integrate_items(tile, inside, u, v, tile_count, max_per_tile: int,
                     starts(parts))
 
 
+def slice_rows(window, slice_len: int):
+    """The rows of each slice of a window (an int or a tensor of them):
+    slice_len, or more where that would cut it into more than MAX_SLICES
+    slices (csrc/integrate.cu:slice_rows)."""
+    least = (window + MAX_SLICES - 1) // MAX_SLICES
+    if torch.is_tensor(window):
+        return torch.clamp_min(least, slice_len)
+    return max(slice_len, least)
+
+
 def plan_bounds(num_points: int, num_tiles: int, max_per_tile: int,
                 slice_len: int, per_item: int = POINTS_PER_ITEM):
-    """Host bounds, with no sync, on a plan's (items, partial products)."""
-    max_slices = max(1, -(-max_per_tile // slice_len))
+    """Host bounds, with no sync, on a plan's (items, partial products):
+    a window has at most min(MAX_SLICES, ceil(max_per_tile / slice_len))
+    slices."""
+    max_slices = min(MAX_SLICES, max(1, -(-max_per_tile // slice_len)))
     return ((num_points // per_item + num_tiles + 1) * max_slices,
             num_points * max_slices if max_slices > 1 else 0)
 

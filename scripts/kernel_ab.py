@@ -4,6 +4,7 @@ checkout's, on one card, in turns.
 
     python3 scripts/kernel_ab.py --old DIR [--seed 0] [--iters 20] [--out DIR]
                                  [--mesh_dir DIR] [--field_only]
+                                 [--slice_sweep 64,128,...,whole]
 
 DIR is the root of another checkout of the repo, for example
 `git archive <commit> | tar -x -C build/old`.  Its f3d_gaus_torch is
@@ -26,9 +27,13 @@ mesh run's output of one image (default chip_smoke.py's, build/
 mesh_smoke/out/00_00, so run the smoke first), read back as chip_smoke.py's
 integrate_timing reads it, at that run's caps.  Old, new, new, old, how
 far the two fields lie apart (and each from the plain version), and the
-opcode counts of the field kernels.  --field_only skips the compositing
-shapes.  Prints one JSON line per shape, then the card's name and power
-limit.
+opcode counts of the field kernels.  --slice_sweep times this checkout's
+field query on the same view at each window-slice length given (`whole`:
+the run's max_per_tile, so that no window is split), in the order given
+and then in reverse, with each length's item and partial-product counts
+(integrate._integrate_items) and how far its field lies from the default
+length's.  --field_only skips the compositing shapes.  Prints one JSON
+line per shape, then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -97,11 +102,10 @@ def compare_shape(name, inp, old, iters, seed):
     return res
 
 
-def compare_field(mesh_dir, old, iters, dev):
-    """The field query, old against new, on the mesh run's frontal view."""
-    import torch
+def field_view(mesh_dir, dev):
+    """The mesh run's frontal view as the field query takes it: (its caps,
+    the slab, the query rays, the statics, the wrapper's arguments)."""
     import chip_smoke as S
-    from f3d_gaus_torch.ops import cuda_raster as new
     from f3d_gaus_torch.ops import integrate as TI
 
     with open(os.path.join(mesh_dir, "mesh_stats.json")) as f:
@@ -116,12 +120,23 @@ def compare_field(mesh_dir, old, iters, dev):
     slab = (pre.v2g_mb, pre.opa_coef, bng.point_list, bng.tile_start,
             bng.tile_count)
     kargs = (*slab, q.u, q.v, q.depth, q.tile, q.inside, mpt)
+    return {"pair_cap": pair_cap, "max_per_tile": mpt}, slab, q, s, kargs
+
+
+def compare_field(mesh_dir, old, iters, dev):
+    """The field query, old against new, on the mesh run's frontal view."""
+    import torch
+    import chip_smoke as S
+    from f3d_gaus_torch.ops import cuda_raster as new
+    from f3d_gaus_torch.ops import integrate as TI
+
+    caps, slab, q, s, kargs = field_view(mesh_dir, dev)
     k_new, k_old = new.integrate(*kargs), old.integrate(*kargs)
     plain = TI._alpha_impl(*slab, q, s)
     diff = (k_new - k_old).abs()
     return {"phase": "kernel_ab", "shape": "field_frontal",
-            "P": int(pre.v2g_mb.shape[0]), "seed_points": int(tp.shape[0]),
-            "caps": {"pair_cap": pair_cap, "max_per_tile": mpt},
+            "P": int(slab[0].shape[0]), "seed_points": int(q.u.shape[0]),
+            "caps": caps,
             "bitwise_equal": bool(torch.equal(k_new, k_old)),
             "max_abs_diff": float(diff.max()),
             "points_differing": int((diff > 0).sum()),
@@ -129,6 +144,43 @@ def compare_field(mesh_dir, old, iters, dev):
             "old_vs_plain": S.field_agreement(k_old, plain),
             "field": in_turns(lambda: old.integrate(*kargs),
                               lambda: new.integrate(*kargs), iters)}
+
+
+def slice_sweep(mesh_dir, lengths, iters, dev):
+    """This checkout's field query on the mesh run's frontal view at each
+    window-slice length, in the order given and then in reverse."""
+    import torch
+    import chip_smoke as S
+    from f3d_gaus_torch.ops import cuda_raster
+    from f3d_gaus_torch.ops import integrate as TI
+
+    caps, slab, q, s, kargs = field_view(mesh_dir, dev)
+    mpt = caps["max_per_tile"]
+    lengths = [mpt if L == "whole" else int(L) for L in lengths]
+    ref = cuda_raster.integrate(*kargs)
+    res = {L: {"ms": []} for L in lengths}
+    for L in lengths + lengths[::-1]:
+        res[L]["ms"].append(S.time_ms(
+            lambda: cuda_raster.integrate(*kargs, slice_len=L), iters))
+    for L in lengths:
+        plan = TI._integrate_items(q.tile, q.inside, q.u, q.v, slab[4], mpt,
+                                   L)
+        blocks = -(-(plan.seg_start[1:] - plan.seg_start[:-1])
+                   // TI.POINTS_PER_ITEM)
+        n_slices = ((plan.item_start[1:] - plan.item_start[:-1])
+                    // torch.clamp_min(blocks, 1))
+        res[L].update(
+            items=int(plan.item_start[-1]), parts=int(plan.part_start[-1]),
+            part_bytes_allocated=4 * TI.plan_bounds(
+                q.u.shape[0], slab[3].shape[0], mpt, L)[1],
+            split_tiles=int((n_slices > 1).sum()),
+            max_abs_diff_from_default=float(
+                (cuda_raster.integrate(*kargs, slice_len=L) - ref).abs()
+                .max()))
+    return {"phase": "kernel_ab", "shape": "field_slice_sweep",
+            "caps": caps, "default_slice_len": TI.SLICE_LEN,
+            "max_slices": TI.MAX_SLICES,
+            "by_slice_len": {str(L): v for L, v in res.items()}}
 
 
 def sass_counts(so, out_dir, tag):
@@ -163,6 +215,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh_dir", default=os.path.join(
         ROOT, "build", "mesh_smoke", "out", "00_00"))
     ap.add_argument("--field_only", action="store_true")
+    ap.add_argument("--slice_sweep", default=None,
+                    help="comma-separated slice lengths, or `whole`")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -205,6 +259,9 @@ def main(argv=None) -> int:
             f.write(json.dumps(line) + "\n")
 
     report(compare_field(args.mesh_dir, old, args.iters, dev))
+    if args.slice_sweep:
+        report(slice_sweep(args.mesh_dir, args.slice_sweep.split(","),
+                           args.iters, dev))
     if args.field_only:
         print(card, flush=True)
         return 0

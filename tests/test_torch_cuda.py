@@ -248,9 +248,9 @@ def test_integrate_kernel_slices(cuda, case, slice_len):
 
 @pytest.mark.parametrize("case", list(INTEGRATE_CASES))
 def test_integrate_prep_and_plan_match_plain(cuda, case):
-    """csrc/integrate_prep.cu's keys equal integrate._point_keys and its
-    rows integrate._pack_rows (the thresholds within an ulp or two);
-    csrc/integrate.cu's plan kernel gives _integrate_items' starts."""
+    """csrc/integrate.cu's prep kernel gives integrate._point_keys' keys
+    and integrate._pack_rows' rows (the thresholds within an ulp or two),
+    and its plan kernel _integrate_items' starts."""
     _, cam, cloud, pts, kw = INTEGRATE_CASES[case]
     tc = [torch.from_numpy(a).to(cuda) for a in cloud]
     mpt = kw.get("max_per_tile", 1024)

@@ -55,10 +55,13 @@ def test_no_jax_in_the_port():
 def test_kernel_loader_imports_without_a_toolchain():
     """cuda_raster imports, and computes its build key, with no nvcc on
     PATH and CUDA_HOME pointing nowhere; building is what would fail.
-    Every kernel source has its C entry point and argument types."""
+    Every kernel source has its C entry points and their argument
+    types."""
     code = ("from f3d_gaus_torch.ops import cuda_raster as C\n"
             "assert C._libs is None and len(C.build_key()) == 16\n"
-            "assert set(C.SOURCES) == set(C.ENTRY) == set(C._ARGTYPES)\n"
+            "assert set(C.SOURCES) == set(C.ENTRY)\n"
+            "assert {e for es in C.ENTRY.values() for e in es} == "
+            "set(C._ARGTYPES)\n"
             "assert all(p.exists() for p in C.SOURCES.values())\n"
             "try:\n    C._nvcc()\nexcept RuntimeError:\n    pass\n"
             "else:\n    raise AssertionError('found an nvcc')\n")
@@ -69,21 +72,24 @@ def test_kernel_loader_imports_without_a_toolchain():
 
 
 def test_c_interfaces_match_argtypes():
-    """Each kernel's extern "C" entry point takes, in order, the argument
-    kinds ctypes is told (a pointer, an int or a float), so no pointer is
-    cut to 32 bits and no argument shifts."""
+    """Each kernel source defines exactly the extern "C" entry points the
+    loader binds, and each takes, in order, the argument kinds ctypes is
+    told (a pointer, an int or a float), so no pointer is cut to 32 bits
+    and no argument shifts."""
     import ctypes
     import re
     from f3d_gaus_torch.ops import cuda_raster
     for name, path in cuda_raster.SOURCES.items():
         src = path.read_text()
-        m = re.search(r'extern "C" int (\w+)\(([^)]*)\)', src)
-        assert m and m.group(1) == cuda_raster.ENTRY[name], name
-        kinds = []
-        for arg in m.group(2).split(","):
-            kinds.append(ctypes.c_void_p if "*" in arg else
-                         ctypes.c_float if "float" in arg else ctypes.c_int)
-        assert kinds == cuda_raster._ARGTYPES[name], name
+        found = re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src)
+        assert tuple(f[0] for f in found) == cuda_raster.ENTRY[name], name
+        for entry, args in found:
+            kinds = []
+            for arg in args.split(","):
+                kinds.append(ctypes.c_void_p if "*" in arg else
+                             ctypes.c_float if "float" in arg else
+                             ctypes.c_int)
+            assert kinds == cuda_raster._ARGTYPES[entry], entry
 
 
 def test_build_key_covers_every_file_under_csrc(tmp_path):

@@ -183,7 +183,8 @@ def test_row_table_rejects_the_sentinel_and_faint_rows():
     """Row P of the packed table, and any row of an opacity below 1/255,
     has the threshold -inf (its column |b|^2 - thr_row is +inf): every
     pair with such a row and a ray of nonzero |a| is rejected, as its
-    alpha fails; an opacity of exactly 1/255 keeps a finite threshold."""
+    alpha fails; the sentinel's a is (1, 1, 1) on every ray, so each of
+    its pairs is; an opacity of exactly 1/255 keeps a finite threshold."""
     mb = torch.randn(3, 12)
     opa = torch.tensor([0.5, 0.5 * TI.ALPHA_EPS, TI.ALPHA_EPS],
                        dtype=torch.float32)
@@ -193,9 +194,14 @@ def test_row_table_rejects_the_sentinel_and_faint_rows():
     col = table[:, 13]
     assert col[1] == col[3] == float("inf") and bool(col[[0, 2]].isfinite()
                                                      .all())
-    assert bool((table[3, :13] == 0).all())
-    rej = TI._pair_rejected(table[:3][None], torch.zeros(5), torch.zeros(5))
-    assert bool(rej[:, 1].all())
+    sentinel = torch.zeros(13)
+    sentinel[[2, 5, 8]] = 1.0
+    assert torch.equal(table[3, :13], sentinel)
+    u, v = torch.randn(5), torch.randn(5)
+    rej = TI._pair_rejected(table[None], u, v)
+    assert bool(rej[:, 1].all()) and bool(rej[:, 3].all())
+    assert not bool(TI._pair_alpha(table[None, :, :13], u, v,
+                                   torch.ones(5))[:, 3].any())
 
 
 def _kernel_walk(plan, s, table, bng, q, slice_len):
@@ -224,7 +230,8 @@ def _kernel_walk(plan, s, table, bng, q, slice_len):
         block, sl = local % n_blocks, local // n_blocks
         n = (min(int(bng.tile_count[seg]), s.max_per_tile) if seg < T
              else 0)
-        lo, hi = sl * slice_len, min(n, (sl + 1) * slice_len)
+        rows = TI.slice_rows(n, slice_len)
+        lo, hi = sl * rows, min(n, (sl + 1) * rows)
         start = int(bng.tile_start[seg]) if seg < T else 0
         ids = bng.point_list[start + lo:start + max(hi, lo)].long().clamp(0, P)
         for k in range(block * K, min(n_pts, (block + 1) * K)):
@@ -260,8 +267,8 @@ def test_integrate_items_cover_each_pair_once(case, slice_len):
     pair is walked by exactly one item, points outside by an item of an
     empty window, the host bounds hold, and the kernel's walk of the plan
     gives the plain field within 2e-5.  long_window has a tile whose
-    window is more than three forced slices long and a tile with one
-    point."""
+    window is more than three forced slices long, so long that at the
+    forced length MAX_SLICES caps its slices, and a tile with one point."""
     s, pre, bng, q = _view(CASES[case])
     plan = TI._integrate_items(q.tile, q.inside, q.u, q.v, bng.tile_count,
                                s.max_per_tile, slice_len)
@@ -289,7 +296,11 @@ def test_integrate_items_cover_each_pair_once(case, slice_len):
         assert n_pts[:T] == [64, 0, 0, 1]
         windows = bng.tile_count.tolist()
         assert windows[0] > 3 * torch_cases.LONG_WINDOW_SLICE
-        assert slices[0] == -(-windows[0] // slice_len) >= 2
+        rows = TI.slice_rows(windows[0], slice_len)
+        assert slices[0] == -(-windows[0] // rows) >= 2
+        assert slices[0] == min(TI.MAX_SLICES, -(-windows[0] // slice_len))
+        if slice_len == torch_cases.LONG_WINDOW_SLICE:
+            assert slices[0] == TI.MAX_SLICES < windows[0] / slice_len
         assert slices[3] == 1
 
 
