@@ -54,7 +54,16 @@ Phases, one JSON line each:
      the decision pass's mask against the plain mask, whether
      two launches agree bit for bit, and the split of one
      NVS render into preprocess, binning, compositing and the rest, with
-     a torch.profiler trace of that render;
+     a torch.profiler trace of that render; band_vs_plain: that NVS render
+     split into NVS_BANDS bands of its 16 tile rows, each rendered through
+     the kernels with its row_off (rasterize.prepare(tile_rows=...)) and
+     held against the plain band (compare_mask, the anchor, held_bwd on
+     >= 95 % of rows, as the full frame is), the stacked bands against the
+     full frame's kernel render (channels 0-5, 7, 8 at 1e-4, the depth at
+     5e-3) and the summed
+     band gradients against the full frame's (>= 99.9 % of rows); each
+     band's forward and backward launch K1 / K2 and the decision pass once
+     each; each band's K1 and K2 timed beside the full frame's;
   5. mesh_path: cli.main without --skip_mesh at PipelineConfig() width
      (128 + 1 NVS views) on one numpy-made RGB-D image written as PNG and
      16-bit _depth.png, with the seeded EDM weights' opacity bias raised
@@ -77,7 +86,12 @@ Phases, one JSON line each:
      share);
   7. train_path: feedforward.train_step at PipelineConfig() width on
      TRAIN_BATCH numpy-made RGB-D images (the yaml's 7 does not fit in
-     80 GB), one fixed novel camera, lr 1e-4, TRAIN_STEPS applied steps;
+     80 GB), one fixed novel camera, lr 1e-4, TRAIN_STEPS applied steps,
+     at the reference yaml's w_perceptual 2 and w_clip 0.35 with the
+     VGG16 and CLIP ViT-B/32 towers at full width (models/vgg.py,
+     models/clip.py; weights from a seeded torch.Generator: no pretrained
+     file is in the repository), each tower's term timed forward and
+     backward;
      the caps double on RenderOverflow (the step runs again, unapplied);
      checks finite terms, moved parameters, a falling loss, and that K1
      and K2 each launch 3 times per image per applied step, the decision
@@ -93,7 +107,14 @@ Phases, one JSON line each:
      row outside holding a pair that can flip; the decision pass's mask on
      all four renders, each differing bit a pair that can flip; and
      compare_given_mask on all four;
-  9. scene_path: full_eval.full_eval on a synthetic scene of
+  9. sharded_path: parallel/ on a world-size-1 NCCL group
+     (parallel.mesh.distributed_init): render_tile_sharded with and
+     without Gaussian sharding against render on the 65,536-Gaussian
+     flagship (tests/test_sharded.py's tolerances, values and gradients),
+     band_render(d, 4) for d = 0..3 assembled (what 4 ranks compute), and
+     SHARDED_STEPS sharded_train_steps at PipelineConfig() against as many
+     plain train_steps from the same seeded state;
+ 10. scene_path: full_eval.full_eval on a synthetic scene of
      NeRF-synthetic's shape (scene_write: 100 hemisphere views at 800^2 as
      Blender transforms_train.json, each parsed camera's world_view within
      1e-5 of the look-at frame it was written from; ~200,000 opaque
@@ -115,7 +136,13 @@ Phases, one JSON line each:
      scene needs; then K1, K2 and the decision pass at the fitted scene
      and the first training camera against their plain versions (the
      anchor; K2 on >= 99.7 % of rows with d_stats, each row outside
-     witnessed) and timed beside their bounds.
+     witnessed) and timed beside their bounds; LPIPS through a seeded
+     torchvision-keyed vgg16 .pt (full_eval's lpips_weights; a finite
+     test_lpips is required, its value means nothing); scene_step_trace:
+     utils.profiling.trace around 10 steps at the fitted scene (kernels
+     and launch calls per step, host ms per step, the device's busy share,
+     the top device operations); band_vs_plain at the fitted render and
+     first training camera in SCENE_BANDS bands (each band by versus_f64).
 Then the `kernels` line, the card's name and power limit, and last the
 result line.  Any failure raises, so the script exits non-zero and prints
 no result; it also refuses to run without a CUDA device.
@@ -155,6 +182,13 @@ GRAD_TOL = 5e-3
 # flips move a few (PERF.md): the flagship, and the training step's renders
 FLAGSHIP_ROWS = 0.999
 TRAIN_ROWS = 0.997
+# ... and the NVS render of the EDM-init predictor's merged Gaussians: the
+# canonical input's Gaussians sit on the pixel rays, where num =
+# |b x Md|^2 is 0 up to rounding, so on an H100 89,639 of the 568,168
+# walked rows held a pair whose clamp of num can flip and the full frame
+# had 96.80 % of its rows within GRAD_TOL, each row outside witnessed
+# (PERF.md)
+NVS_ROWS = 0.95
 FLIP_KINDS = ("alpha", "t", "num")   # the decisions flip_margins witnesses
 # and the pairs whose alpha or normal f32 evaluation is uncertain by at
 # least GRAD_TOL of its value (pair_margins' fourth row)
@@ -193,7 +227,27 @@ OPS_PER_FAILING_INTEGRATE = 37
 FIELD_KERNELS = ("integrate_kernel", "combine_kernel", "plan_kernel",
                  "prep_kernel")
 MESH_STEPS = 8
+# the bands of band_vs_plain: the NVS render's 16 tile rows in 4 bands of
+# 4, the per-scene render's 50 in 5 of 10
+NVS_BANDS = 4
+SCENE_BANDS = 5
+BAND_TOL_TEXT = (
+    "each band against the plain band: mask bits each a pair that can "
+    "flip; {held}; stacked bands against the full frame's kernel render "
+    "channels 0-5,7,8 1e-4, depth 5e-3; summed band gradients against the "
+    f"full frame's {GRAD_TOL} x max|g| per column on >= {FLAGSHIP_ROWS} of "
+    "rows")
 TRAIN_BATCH = 6            # images per step; 7 need ~86.5e9 bytes (PERF.md)
+# the reference yaml's tower weights (config/imagenetgs_256x256_v1.yaml)
+TRAIN_W_PERCEPTUAL = 2.0
+TRAIN_W_CLIP = 0.35
+SHARDED_BATCH = 2          # images per sharded_path training step
+SHARDED_STEPS = 2
+# the sharded step against the plain one from the same state: step 1's
+# losses, step 2's (after one update whose K2 atomics differ), and the
+# parameters' distance after both steps over the plain run's total change
+SHARDED_LOSS_RTOL = (1e-5, 1e-3)
+SHARDED_PARAM_RTOL = 5e-2
 TRAIN_STEPS = 5            # applied steps (tests/test_feedforward.py:64-95)
 GRAD_NAMES = ("means", "scales", "quats", "opacities", "shs", "means2d_stats")
 
@@ -757,7 +811,7 @@ def compare_given_mask(inp, seed, min_rows):
                                         kinds=("num",))}
 
 
-def versus_f64(inp, seed):
+def versus_f64(inp, seed, g=None):
     """K1 and K2 against their plain versions where thin Gaussians make the
     monomial form's f32 evaluation ill-conditioned (the fitted per-scene
     scene: both f32 evaluations differ from the f64 one by up to a few
@@ -772,14 +826,19 @@ def versus_f64(inp, seed):
     of them hold a pair of each MARGIN_KINDS is reported.
     The plain f32 version's figures against f64 and the direct
     kernel-vs-plain errors (the anchor, and held_bwd's rows and witnesses)
-    are reported."""
+    are reported.  With `g`, an out9 cotangent for this input in place of
+    bwd_inputs' seeded one, nothing is required and the kernel's and the
+    f64 version's gradients are returned too (under "grads"):
+    band_vs_plain holds a frame's bands together."""
     import numpy as np
     import torch
     from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.ops import rasterize as R
     import torch_cases
 
-    feat, extra, slab, aux, g = bwd_inputs(inp, seed)
+    held = g is None
+    feat, extra, slab, aux, g_seeded = bwd_inputs(inp, seed)
+    g = g_seeded if held else g
     s = inp.statics
     mask = cuda_raster.decide(feat, *slab[:3], s)
     ko, ka = cuda_raster.composite_fwd(feat, *slab, s, mask=mask)
@@ -802,8 +861,8 @@ def versus_f64(inp, seed):
             fwd[name].update(values_above_max=int(big.sum()),
                              unwitnessed=int((big & (e > bound)).sum()))
     k64 = fwd["kernel_vs_f64"]
-    require(k64["anchor_frac_above_1e3"] <= ANCHOR_SHARE
-            and k64["unwitnessed"] == 0, fwd)
+    require(not held or (k64["anchor_frac_above_1e3"] <= ANCHOR_SHARE
+                         and k64["unwitnessed"] == 0), fwd)
 
     args = (feat, extra, *slab, ka, g, s)
     kb = cuda_raster.composite_bwd(*args, mask=mask)
@@ -823,9 +882,9 @@ def versus_f64(inp, seed):
             for i, kind in enumerate(MARGIN_KINDS)},
             unwitnessed_rows=int((bad & ~can_flip.any(0)).sum()))
         bwd[name] = res
-    require(bwd["kernel_vs_f64"]["rows_within_tol"] >= TRAIN_ROWS,
+    require(not held or bwd["kernel_vs_f64"]["rows_within_tol"] >= TRAIN_ROWS,
             bwd["kernel_vs_f64"])
-    return {"fwd": fwd, "bwd": bwd}
+    return {"fwd": fwd, "bwd": bwd, **({} if held else {"grads": (kb, qb)})}
 
 
 def compare_chain(cam, cloud, bg, kw, dev, seed):
@@ -921,8 +980,9 @@ def time_kernel_bwd(inp, iters, seed, held=True):
                 **agree)
 
 
-def prepared(g, cam, cfg, b=0):
-    """rasterize.prepare of element b of a Gaussian dict at cfg's caps."""
+def prepared(g, cam, cfg, b=0, tile_rows=None):
+    """rasterize.prepare of element b of a Gaussian dict at cfg's caps
+    (of the band tile_rows, when given)."""
     import torch
     from f3d_gaus_torch.ops import rasterize as R
 
@@ -932,7 +992,138 @@ def prepared(g, cam, cfg, b=0):
                      torch.zeros(3, device=shs.device),
                      sh_degree=cfg.max_sh_degree, kernel_size=cfg.kernel_size,
                      pair_cap=cfg.pair_cap, max_per_tile=cfg.max_per_tile,
-                     chunk=cfg.chunk)
+                     chunk=cfg.chunk, tile_rows=tile_rows)
+
+
+def counted(fn, k1=0, k2=0, decide=0):
+    """fn() with the launch counts set to 0 just before it, required to
+    launch K1's compositing pass k1 times, K2's backward pass k2 times and
+    the decision pass `decide` times."""
+    import torch
+    from f3d_gaus_torch.ops import cuda_raster
+
+    cuda_raster.launches = cuda_raster.launches_bwd = 0
+    cuda_raster.launches_decide = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = (cuda_raster.launches, cuda_raster.launches_bwd,
+           cuda_raster.launches_decide)
+    require(got == (k1, k2, decide),
+            f"launches K1 / K2 / decision {got}, expected {(k1, k2, decide)}")
+    return out
+
+
+def band_vs_plain(case, make, n_bands, seed, per_scene=False,
+                  min_rows=NVS_ROWS):
+    """The frame split into n_bands bands of its tile rows, each rendered
+    through the kernels with its row_off (make(tile_rows) prepares it).
+    Each band is held against the plain band render by the full frame's
+    rules: the decision mask by compare_mask (each differing bit a pair
+    that can flip); K1 by the anchor and K2 by held_bwd (>= min_rows of
+    rows, each outside witnessed; the full frame is held so too, on the
+    same cotangent) or, at the fitted per-scene scene (per_scene), both by
+    versus_f64's rules taken over the bands together, as over the frame:
+    the anchor's share of values above ANCHOR_ABOVE, and K2's rows within
+    GRAD_TOL of the f64 version's, summed over the bands on the frame's
+    cotangent cut into bands (a band that holds the frame's thinnest
+    Gaussians concentrates their share, and its own largest |g| is
+    smaller than the frame's).  The stacked
+    bands' K1 outputs are
+    held against the full frame's kernel render (channels 0-5, 7, 8 at
+    1e-4, the median depth at 5e-3: tests/test_sharded.py:45-49) and the
+    bands' K2 gradients, summed, on the full frame's cotangent cut into
+    bands, against the full frame's (GRAD_TOL x max|g| on >= FLAGSHIP_ROWS
+    of rows).  Each band's counted forward launches the decision pass and
+    K1 once, its counted backward the decision pass and K2 once.  Times
+    each band's K1 and K2 and the full frame's with CUDA events."""
+    import torch
+    from f3d_gaus_torch.ops import cuda_raster
+    from f3d_gaus_torch.ops import rasterize as R
+
+    full = make(None)
+    fs = full.statics
+    require(fs.grid_y % n_bands == 0, f"{fs.grid_y} rows in {n_bands} bands")
+    rows = fs.grid_y // n_bands
+    feat, extra, slab, _, g_full = bwd_inputs(full, seed)
+    out_f, aux_f = cuda_raster.composite_fwd(feat, *slab, fs)
+    grad_f = cuda_raster.composite_bwd(feat, extra, *slab, aux_f, g_full, fs)
+    times = {"full": {"k1_ms": time_ms(lambda: cuda_raster.composite_fwd(
+        feat, *slab, fs), TIMED_LAUNCHES), "k2_ms": time_ms(
+        lambda: cuda_raster.composite_bwd(feat, extra, *slab, aux_f, g_full,
+                                          fs), TIMED_LAUNCHES),
+        "pairs": int(full.binning.num_pairs)}}
+    full_bwd = None
+    if not per_scene:
+        args = (feat, extra, *slab, aux_f, g_full, fs)
+        full_bwd = held_bwd(full, args, grad_f, R._composite_bwd_impl(*args),
+                            min_rows)
+    del full
+    outs, sums, sums64, bands = [], None, None, []
+    for d in range(n_bands):
+        inp = make((d * rows, rows))
+        s, b = inp.statics, inp.binning
+        require(s.row_off == d * rows and s.grid_y == rows
+                and s.height == fs.height and not bool(b.overflow),
+                f"band {d}: {s}")
+        bf, bx, bslab, _, _ = bwd_inputs(inp, seed)
+        o, a = counted(lambda: cuda_raster.composite_fwd(bf, *bslab, s),
+                       k1=1, decide=1)
+        t0, t1 = d * rows * fs.grid_x, (d + 1) * rows * fs.grid_x
+        gb = g_full[t0:t1].contiguous()
+        kb = counted(lambda: cuda_raster.composite_bwd(bf, bx, *bslab, a, gb,
+                                                       s), k2=1, decide=1)
+        res = {"band": d, "row_off": s.row_off, "rows": rows,
+               "pairs": int(b.num_pairs),
+               "mask": compare_mask(inp, exact=False)}
+        if per_scene:
+            vs = versus_f64(inp, seed + d, g=gb)
+            k64, q64 = vs.pop("grads")
+            sums64 = ([k64, q64] if sums64 is None else
+                      [[x + y for x, y in zip(a, b)]
+                       for a, b in zip(sums64, (k64, q64))])
+            res.update(fwd_vs_f64=vs["fwd"]["kernel_vs_f64"],
+                       bwd_vs_f64=vs["bwd"]["kernel_vs_f64"])
+            require(res["fwd_vs_f64"]["unwitnessed"] == 0, res)
+        else:
+            res["fwd"] = compare(inp, exact=False)
+            pb = R._composite_bwd_impl(bf, bx, *bslab, a, gb, s)
+            res["bwd"] = held_bwd(inp, (bf, bx, *bslab, a, gb, s), kb, pb,
+                                  min_rows)
+        res["k1_ms"] = time_ms(lambda: cuda_raster.composite_fwd(
+            bf, *bslab, s), TIMED_LAUNCHES)
+        res["k2_ms"] = time_ms(lambda: cuda_raster.composite_bwd(
+            bf, bx, *bslab, a, gb, s), TIMED_LAUNCHES)
+        outs.append(o)
+        sums = list(kb) if sums is None else [x + y for x, y in zip(sums, kb)]
+        bands.append(res)
+        del inp, bf, bx, bslab, a, kb
+    stacked = torch.cat(outs, 0)
+    err = (stacked - out_f).abs().amax((0, 1))
+    ch = [c for c in range(9) if c != 6]
+    summed, bad = grad_agreement(sums, grad_f)
+    result = {"case": case, "n_bands": n_bands, "bands": bands,
+              "full_frame_bwd": full_bwd,
+              "stacked_vs_full": {"max_abs_err": float(err[ch].max()),
+                                  "depth_max_abs_err": float(err[6])},
+              "summed_grads_vs_full": {**summed,
+                                       "rows_outside_tol": int(bad.sum())},
+              "times": {**times, "bands_k1_ms": [x["k1_ms"] for x in bands],
+                        "bands_k2_ms": [x["k2_ms"] for x in bands]}}
+    require(result["stacked_vs_full"]["max_abs_err"] <= 1e-4
+            and float(err[6]) <= 5e-3, result["stacked_vs_full"])
+    require(summed["rows_within_tol"] >= FLAGSHIP_ROWS,
+            result["summed_grads_vs_full"])
+    if per_scene:
+        # the bands have equal sizes: the frame's share is their mean
+        share = sum(b["fwd_vs_f64"]["anchor_frac_above_1e3"]
+                    for b in bands) / n_bands
+        result["fwd_vs_f64_frac_above_1e3"] = share
+        require(share <= ANCHOR_SHARE, f"bands' share above "
+                f"{ANCHOR_ABOVE} against f64: {share}")
+        result["summed_bwd_vs_f64"] = grad_agreement(*sums64)[0]
+        require(result["summed_bwd_vs_f64"]["rows_within_tol"] >= TRAIN_ROWS,
+                result["summed_bwd_vs_f64"])
+    return result
 
 
 def render_breakdown(g, cam, cfg, reps=3):
@@ -1179,7 +1370,50 @@ def serving_path(args, dev, card):
          **render_breakdown(res.merged, nvs_cam, fcfg))
     emit("nvs_render_profile", card=card,
          **profile_render(res.merged, nvs_cam, fcfg))
-    return (launches, launches_decide), shapes, (n_nvs, n_agg + n_nvs)
+    bands = band_vs_plain("nvs", lambda tr: prepared(
+        res.merged, nvs_cam, fcfg, tile_rows=tr), NVS_BANDS, args.seed)
+    emit("band_vs_plain", card=card, tol=BAND_TOL_TEXT.format(
+        held=f"K1 the anchor, K2 held_bwd on >= {NVS_ROWS} of rows (the "
+             "full frame too)"), **bands)
+    return ((launches, launches_decide), shapes, (n_nvs, n_agg + n_nvs),
+            bands)
+
+
+def make_towers(seed, dev):
+    """VGG16 and CLIP ViT-B/32 at full width, frozen, their weights from a
+    seeded torch.Generator (no pretrained file is in the repository)."""
+    import torch
+    from f3d_gaus_torch.models import clip as CL
+    from f3d_gaus_torch.models import vgg as VG
+
+    gen = torch.Generator().manual_seed(seed + 5)
+    return {"vgg": VG.VGG16(gen).to(dev).eval().requires_grad_(False),
+            "clip": CL.CLIPVisual(7, gen).to(dev).eval().requires_grad_(
+                False)}
+
+
+def tower_ms(towers, weights, target, iters=5):
+    """Milliseconds of each tower's weighted loss term, forward and
+    backward to the image, as loss_fn takes it at the training step's
+    shape (a random render against `target`, (B, 3, H, W))."""
+    import torch
+    from f3d_gaus_torch.models import clip as CL
+    from f3d_gaus_torch.models import vgg as VG
+
+    x = torch.rand(target.shape, generator=torch.Generator(
+        device=target.device).manual_seed(0), device=target.device)
+    x.requires_grad_()
+
+    def run(term):
+        def step():
+            x.grad = None
+            term().backward()
+        return time_ms(step, iters)
+    return {"perceptual_ms": run(lambda: weights.w_perceptual
+                                 * VG.perceptual_loss(towers["vgg"], x,
+                                                      target)),
+            "clip_ms": run(lambda: weights.w_clip * CL.clip_loss(
+                towers["clip"], x.clamp(0.0, 1.0), target))}
 
 
 def training_path(args, dev, card):
@@ -1198,6 +1432,9 @@ def training_path(args, dev, card):
     cfg, B = C.PipelineConfig(), TRAIN_BATCH
     state = F.init_state(torch.Generator().manual_seed(args.seed), cfg,
                          lr=1e-4)
+    towers = make_towers(args.seed, dev)
+    weights = F.LossWeights(w_perceptual=TRAIN_W_PERCEPTUAL,
+                            w_clip=TRAIN_W_CLIP)
     # one fixed novel camera keeps the objective the same across steps
     pack = F.make_cameras_pack(cfg, D.canonical_cameras(cfg), n_banks=1,
                                views_per_bank=1)
@@ -1219,7 +1456,8 @@ def training_path(args, dev, card):
         timings = {}
         t0 = time.perf_counter()
         try:
-            loss, aux = F.train_step(state, cfg, batch, pack, timings=timings)
+            loss, aux = F.train_step(state, cfg, batch, pack, weights,
+                                     timings=timings, towers=towers)
         except renderer.RenderOverflow as e:
             require(len(attempts) < cycle.MAX_DOUBLINGS, "caps keep overflowing")
             cfg = dataclasses.replace(cfg, pair_cap=cfg.pair_cap * 2,
@@ -1231,7 +1469,8 @@ def training_path(args, dev, card):
         wall = time.perf_counter() - t0
         terms = {k: v.item() for k, v in aux.items() if k != "overflow"}
         require(all(np.isfinite(v) for v in terms.values())
-                and np.isfinite(loss.item()), terms)
+                and np.isfinite(loss.item())
+                and {"loss_perceptual", "loss_clip"} <= set(terms), terms)
         require(not bool(aux["overflow"].any()), "overflow in an applied step")
         k1, k2 = cuda_raster.launches - f0, cuda_raster.launches_bwd - b0
         kd = cuda_raster.launches_decide - d0
@@ -1253,7 +1492,18 @@ def training_path(args, dev, card):
     require(moved > 0, "parameters did not move")
     require(steps[-1]["loss"] < steps[0]["loss"],
             f"loss {steps[0]['loss']} -> {steps[-1]['loss']}")
+    mean_step_s = float(np.mean([x["wall_s"] for x in steps]))
+    t_ms = tower_ms(towers, weights, batch["images"].permute(0, 3, 1, 2))
     emit("train_path", card=card, config="PipelineConfig()", batch=B,
+         batch_why="7 images need ~86.5e9 bytes without the towers (PERF.md)",
+         loss_weights={"w_perceptual": weights.w_perceptual,
+                       "w_clip": weights.w_clip},
+         towers={k: {"params": sum(p.numel() for p in t.parameters()),
+                     "weights": f"seeded torch.Generator (seed {args.seed} "
+                                "+ 5), no pretrained file"}
+                 for k, t in towers.items()},
+         towers_ms=t_ms, towers_share_of_step=sum(t_ms.values()) / (
+             mean_step_s * 1e3), mean_step_s=mean_step_s,
          lr=1e-4, applied_steps=len(steps), replans=attempts,
          caps={"pair_cap": cfg.pair_cap, "max_per_tile": cfg.max_per_tile},
          launches_k1=launches[0], launches_k2=launches[1],
@@ -1261,7 +1511,9 @@ def training_path(args, dev, card):
          peak_allocated_bytes=peak, max_param_change=moved, steps=steps)
     # two more steps, after the counted ones: where a step's time goes
     emit("train_step_profile", card=card, batch=B, **device_profile(
-        lambda: F.train_step(state, cfg, batch, pack), top=15))
+        lambda: F.train_step(state, cfg, batch, pack, weights,
+                             towers=towers), top=15))
+    del towers
 
     # K2 at the step's two shapes: the canonical and cycle renders of
     # images 0 (timed) and 1
@@ -1305,6 +1557,148 @@ def training_path(args, dev, card):
         emit("given_mask_vs_plain", case=f"train_{k}_image1",
              tol=GIVEN_MASK_TOL_TEXT, **given[-1])
     return launches, shapes, B, masks, given
+
+
+def sharded_grads(fn, cloud, w9):
+    """fn(*five tensors) -> out dict; (out9, overflow, the five gradients
+    of sum(out9 * w9))."""
+    ts = [x.clone().requires_grad_() for x in cloud]
+    out = fn(*ts)
+    (out["out9"] * w9).sum().backward()
+    return out["out9"].detach(), bool(out["overflow"]), [t.grad for t in ts]
+
+
+def held_frame(got, want, got_g, want_g, what):
+    """tests/test_sharded.py's rules: out9 channels 0-5, 7, 8 within 1e-4,
+    the median depth within 5e-3, each input's gradient within GRAD_TOL x
+    its largest |g|."""
+    ch = [c for c in range(9) if c != 6]
+    res = {"max_abs_err": float((got[ch] - want[ch]).abs().max()),
+           "depth_max_abs_err": float((got[6] - want[6]).abs().max()),
+           "grad_rel_err": {n: float((a - b).abs().max()) / max(
+               float(b.abs().max()), 1e-30)
+               for n, a, b in zip(GRAD_NAMES, got_g, want_g)}}
+    require(res["max_abs_err"] <= 1e-4 and res["depth_max_abs_err"] <= 5e-3
+            and max(res["grad_rel_err"].values()) <= GRAD_TOL, (what, res))
+    return res
+
+
+def sharded_path(args, dev, card):
+    """Phase 10: parallel/ on the card.  A world-size-1 NCCL group from
+    parallel.mesh.distributed_init; render_tile_sharded with and without
+    Gaussian sharding against render on the 65,536-Gaussian flagship,
+    values and gradients, each launching K1, K2 and the decision pass as
+    one render does; band_render(d, 4) for d = 0..3 assembled (what 4 ranks
+    would compute) against the same render; and SHARDED_STEPS
+    sharded_train_steps at PipelineConfig() against as many plain
+    train_steps from the same seeded state."""
+    import shutil
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from f3d_gaus_torch.ops import rasterize as R
+    from f3d_gaus_torch.parallel import mesh as PM
+    from f3d_gaus_torch.parallel import sharded as SH
+    from f3d_gaus_torch.pipeline import config as C
+    from f3d_gaus_torch.pipeline import cycle
+    from f3d_gaus_torch.pipeline import dataset as D
+    from f3d_gaus_torch.pipeline import renderer
+    from f3d_gaus_torch.train import feedforward as F
+    import torch_cases
+
+    store = os.path.join(ROOT, "build", "dist_store")
+    shutil.rmtree(store, ignore_errors=True)
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    require(PM.distributed_init(init_method=f"file://{store}", world_size=1,
+                                rank=0), "distributed_init")
+    backend = dist.get_backend()
+    require(backend == "nccl", backend)
+    try:
+        cam, cloud = torch_cases.bench_scene(np.random.default_rng(args.seed))
+        tc = cloud_to(cloud, dev)
+        caps = R.plan_caps(*tc[:4], cam)
+        bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+        w9 = np.random.default_rng(args.seed).normal(
+            size=(9, cam.height, cam.width)).astype(np.float32)
+        w9[6] = w9[7] = 0.0
+        w9 = torch.from_numpy(w9).to(dev)
+        render = counted(lambda: sharded_grads(lambda *t: R.render(
+            *t, cam, bg, **caps), tc, w9), k1=1, k2=1, decide=2)
+        require(not render[1], "flagship caps overflow")
+        res = {"caps": caps, "P": int(tc[0].shape[0])}
+        for gs in (False, True):
+            got = counted(lambda: sharded_grads(
+                lambda *t: SH.render_tile_sharded(
+                    None, *t, cam, bg, gaussian_shard=gs, **caps), tc, w9),
+                k1=1, k2=1, decide=2)
+            require(not got[1], "sharded render overflow")
+            res[f"gaussian_shard_{gs}"] = held_frame(
+                got[0], render[0], got[2], render[2], f"sharded {gs}")
+        # what 4 ranks compute, on one card
+        ts = [x.clone().requires_grad_() for x in tc]
+        bands = counted(lambda: [SH.band_render(
+            d, 4, *ts, cam, bg, **caps) for d in range(4)], k1=4, decide=4)
+        require(not any(bool(o) for _, o in bands), "band overflow")
+        frame = torch.cat([b for b, _ in bands], 1)
+        counted(lambda: (frame * w9).sum().backward(), k2=4, decide=4)
+        res["band_render_4"] = held_frame(frame.detach(), render[0],
+                                          [t.grad for t in ts], render[2],
+                                          "band_render")
+        del render, bands, frame, ts
+
+        cfg = C.PipelineConfig()
+        pack = F.make_cameras_pack(cfg, D.canonical_cameras(cfg), n_banks=1,
+                                   views_per_bank=1)
+        rng = np.random.default_rng(args.seed + 4)
+        images, depths = zip(*(smooth_rgbd(rng, cfg.resolution)
+                               for _ in range(SHARDED_BATCH)))
+        batch = {"images": torch.from_numpy(np.concatenate(images)).to(dev),
+                 "depth": torch.from_numpy(np.concatenate(depths)).to(dev)}
+        states = [F.init_state(torch.Generator().manual_seed(args.seed), cfg,
+                               lr=1e-4) for _ in range(2)]
+        p0 = {k: v.detach().clone()
+              for k, v in states[0].model.named_parameters()}
+        mesh = PM.make_mesh(data=1)
+        losses, replans = [], []
+        while len(losses) < SHARDED_STEPS:
+            step = PM.sharded_train_step(mesh, cfg)
+            try:
+                la, _ = step(states[0], batch, pack)
+            except renderer.RenderOverflow as e:
+                require(len(replans) < cycle.MAX_DOUBLINGS, "caps overflow")
+                cfg = dataclasses.replace(cfg, pair_cap=cfg.pair_cap * 2,
+                                          max_per_tile=cfg.max_per_tile * 2)
+                replans.append(str(e))
+                continue
+            lb, _ = F.train_step(states[1], cfg, batch, pack)
+            losses.append((la.item(), lb.item()))
+        rel = [abs(a - b) / abs(b) for a, b in losses]
+        with torch.no_grad():
+            diff = sum(float(((a - b) ** 2).sum()) for a, b in zip(
+                states[0].model.parameters(), states[1].model.parameters()))
+            change = sum(float(((b - p0[k]) ** 2).sum()) for k, b in
+                         states[1].model.named_parameters())
+        res["train"] = {
+            "batch": SHARDED_BATCH, "steps": SHARDED_STEPS,
+            "mesh": {"names": mesh.mesh_dim_names,
+                     "shape": list(mesh.shape)},
+            "replans": replans, "losses_sharded_plain": losses,
+            "loss_rel_err": rel, "param_rel_dist": (diff / change) ** 0.5,
+            "tol": {"loss_rtol": SHARDED_LOSS_RTOL,
+                    "param_rtol": SHARDED_PARAM_RTOL}}
+        require(all(r <= t for r, t in zip(rel, SHARDED_LOSS_RTOL))
+                and res["train"]["param_rel_dist"] <= SHARDED_PARAM_RTOL,
+                res["train"])
+        del states, p0
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    emit("sharded_path", card=card, backend=backend, world_size=1,
+         tol="tests/test_sharded.py's: out9 channels 0-5,7,8 1e-4, depth "
+             f"5e-3, gradients {GRAD_TOL} x max|g| per input", **res)
+    # a sharded render counts as one render: K1 and K2 twice each
+    return {"raster_fwd": 2 + 4, "raster_bwd": 2 + 4,
+            "gof_decide": 4 + 8}
 
 
 def field_agreement(kernel, plain):
@@ -2018,9 +2412,10 @@ def write_scene(root, rng, dev):
                 alpha_mean)), "write_s": time.perf_counter() - t0}
 
 
-def scene_kernel_inputs(scene, cam, cfg):
-    """rasterize.prepare of the trained scene at one camera, as the test
-    renders take it (SH degree cfg.sh_degree, dead rows culled)."""
+def scene_kernel_inputs(scene, cam, cfg, tile_rows=None):
+    """rasterize.prepare of the trained scene at one camera (its band
+    tile_rows, when given), as the test renders take it (SH degree
+    cfg.sh_degree, dead rows culled)."""
     import torch
     from f3d_gaus_torch.ops import rasterize as R
     from f3d_gaus_torch.train import per_scene as PS
@@ -2030,7 +2425,44 @@ def scene_kernel_inputs(scene, cam, cfg):
                      g["shs"], cam, torch.zeros(3, device=scene.xyz.device),
                      sh_degree=cfg.sh_degree, pair_cap=cfg.pair_cap,
                      max_per_tile=cfg.max_per_tile, chunk=cfg.chunk,
-                     mask=scene.alive)
+                     mask=scene.alive, tile_rows=tile_rows)
+
+
+def step_trace(step, logdir, n_steps=SCENE_TIMED_STEPS):
+    """utils.profiling.trace around n_steps calls of step(i) (warmed up by
+    one before): per step the kernels the device ran and the kernel-launch
+    calls the host made, the host's seconds, the device's busy share of
+    the window, and the operations with the most device time."""
+    import torch
+    from f3d_gaus_torch.utils import profiling
+
+    step(0)
+    torch.cuda.synchronize()
+    with profiling.trace(logdir) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            step(i)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    ka = prof.key_averages()
+    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in ka
+                   if str(e.device_type).endswith("CUDA")
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    kernels = sum(c for k, _, c in rows
+                  if not k.startswith(("Memcpy", "Memset")))
+    calls = sum(e.count for e in ka if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+        "cuLaunchKernelEx"))
+    busy_s = sum(r[1] for r in rows) / 1e6
+    return {"steps": n_steps, "host_ms_per_step": wall_s / n_steps * 1e3,
+            "kernels_per_step": kernels / n_steps,
+            "launch_calls_per_step": calls / n_steps,
+            "device_busy_ms_per_step": busy_s / n_steps * 1e3,
+            "device_busy_share": busy_s / wall_s,
+            "top": [{"op": k[:80], "device_us": t, "calls": c}
+                    for k, t, c in rows[:15]],
+            "trace": os.path.relpath(os.path.join(logdir, "trace.json"),
+                                     ROOT)}
 
 
 def scene_path(args, dev, card):
@@ -2045,6 +2477,7 @@ def scene_path(args, dev, card):
     import torch
     from f3d_gaus_torch import eval as EV
     from f3d_gaus_torch import full_eval as FE
+    from f3d_gaus_torch.models import vgg as VG
     from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.ops import knn
     from f3d_gaus_torch.pipeline import scene_io
@@ -2084,6 +2517,11 @@ def scene_path(args, dev, card):
         return fits[-1][:2]
 
     out = os.path.join(work, "out")
+    # LPIPS through a seeded torchvision-keyed vgg16 state_dict: the path
+    # runs, the score means nothing (no pretrained file is in the repo)
+    vgg_pt = os.path.join(work, "vgg16_seeded.pt")
+    torch.save(VG.VGG16(torch.Generator().manual_seed(args.seed + 6))
+               .state_dict(), vgg_pt)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2093,7 +2531,7 @@ def scene_path(args, dev, card):
     t0 = time.perf_counter()
     try:
         agg = FE.full_eval([root], out, cfg=cfg, n_init_points=SCENE_INIT,
-                           device=dev)
+                           lpips_weights=vgg_pt, device=dev)
     finally:
         PS.fit_scene = fit
     torch.cuda.synchronize()
@@ -2145,17 +2583,23 @@ def scene_path(args, dev, card):
     targets = torch.from_numpy(np.stack([np.transpose(c.image, (2, 0, 1))
                                          for c in train_cams[:4]])).to(dev)
     split = []
-    for i in range(SCENE_TIMED_STEPS + 2):
+
+    def step(i, t=None):
+        nonlocal opt, stats
         cam = train_cams[i % 4].camera
-        t = {}
         _, opt, stats, _ = PS.train_step(
             scene, opt, stats, (cam.world_view, cam.full_proj,
                                 cam.cam_center),
             targets[i % 4], torch.zeros(3, device=dev), cfg,
             min(n_it // cfg.sh_degree_interval, cfg.sh_degree),
             (cam.width, cam.height, cam.tan_fovx, cam.tan_fovy), timings=t)
+    for i in range(SCENE_TIMED_STEPS + 2):
+        t = {}
+        step(i, t)
         if i >= 2:
             split.append(t)
+    emit("scene_step_trace", card=card, **step_trace(
+        step, os.path.join(work, "trace")))
     del opt, stats, targets
     step_ms = {k: float(np.median([t[k] for t in split]))
                for k in ("forward", "backward", "adam")}
@@ -2186,6 +2630,9 @@ def scene_path(args, dev, card):
          alive_per_densification=hist["densify"],
          loss_first_100=first, loss_last_100=last,
          test_psnr=summary["test_psnr"], test_ssim=summary["test_ssim"],
+         test_lpips=summary.get("test_lpips"),
+         test_lpips_note="seeded random VGG16 weights: the LPIPS path runs, "
+                         "the score means nothing",
          init_psnr=init_m["psnr"], init_ssim=init_m["ssim"],
          init_scene_by_caps=init_scores,
          overflow_steps=hist["overflow_steps"],
@@ -2207,6 +2654,8 @@ def scene_path(args, dev, card):
             "non-finite parameters")
     require(last < first, f"loss {first} -> {last}")
     require(len(set(alive)) > 1, f"alive counts {alive}")
+    require(np.isfinite(summary.get("test_lpips", np.nan)),
+            f"test LPIPS {summary.get('test_lpips')}")
     require(summary["test_psnr"] > init_m["psnr"],
             f"test PSNR {summary['test_psnr']} <= init {init_m['psnr']}")
 
@@ -2227,7 +2676,17 @@ def scene_path(args, dev, card):
     bwd = time_kernel_bwd(inp, TIMED_LAUNCHES, args.seed, held=False)
     bwd.update(vs["bwd"]["kernel_vs_plain"])
     emit("kernel_timing_bwd", card=card, shape="per_scene", **bwd)
-    return launches, fwd, bwd
+    del inp
+    torch.cuda.empty_cache()
+    bands = band_vs_plain("per_scene", lambda tr: scene_kernel_inputs(
+        scene, train_cams[0].camera, cfg, tr), SCENE_BANDS, args.seed + 2,
+        per_scene=True)
+    emit("band_vs_plain", card=card, tol=BAND_TOL_TEXT.format(
+        held=f"K1 and K2 by versus_f64 over the bands together (K1 the "
+             f"anchor against f64, its share of values above {ANCHOR_ABOVE} "
+             f"over all bands; the bands' summed K2 >= {TRAIN_ROWS} of rows "
+             "within tolerance of their summed f64 gradients)"), **bands)
+    return launches, fwd, bwd, bands
 
 
 
@@ -2253,8 +2712,8 @@ def main(argv=None) -> int:
     build(card)
     flagship_bwd, masks, given = kernels_vs_plain(dev, args.seed)
     integrate_small_err = integrate_vs_plain(dev, args.seed)
-    (serve_k1, serve_decide), fwd_shapes, (n_nvs, n_render) = serving_path(
-        args, dev, card)
+    (serve_k1, serve_decide), fwd_shapes, (n_nvs, n_render), nvs_bands = \
+        serving_path(args, dev, card)
     masks += [v["mask"] for v in fwd_shapes.values()]
     mesh = mesh_path(args, dev, card)
     field = integrate_timing(mesh, args, dev, card)
@@ -2264,9 +2723,15 @@ def main(argv=None) -> int:
         train_given = training_path(args, dev, card)
     masks += train_masks
     given += train_given
-    (scene_k1, scene_k2, scene_decide), scene_fwd, scene_bwd = scene_path(
-        args, dev, card)
+    sharded = sharded_path(args, dev, card)
+    (scene_k1, scene_k2, scene_decide), scene_fwd, scene_bwd, scene_bands = \
+        scene_path(args, dev, card)
     masks += [scene_fwd["mask"], scene_bwd["mask"]]
+    bands = {"nvs": nvs_bands, "per_scene": scene_bands}
+    masks += [b["mask"] for x in bands.values() for b in x["bands"]]
+    n_bands = sum(x["n_bands"] for x in bands.values())
+    band_times = {k: {f: x["times"][f] for f in (
+        "full", "bands_k1_ms", "bands_k2_ms")} for k, x in bands.items()}
     fwd_shapes["per_scene"] = scene_fwd
     bwd_shapes["per_scene"] = scene_bwd
 
@@ -2282,9 +2747,15 @@ def main(argv=None) -> int:
         "sources": [csrc + f for f in ("gof_decide.cu", "raster_fwd.cu",
                                        "gof_pair.cuh")],
         "replaces": "f3d_gaus_tpu/ops/pallas_raster.py:230",
-        "launches": serve_k1 + train_k1 + mesh_k1 + scene_k1,
+        "launches": (serve_k1 + train_k1 + mesh_k1 + scene_k1 + n_bands
+                     + sharded["raster_fwd"]),
         "launches_by_path": {"serving": serve_k1, "training": train_k1,
-                             "mesh": mesh_k1, "per_scene": scene_k1},
+                             "mesh": mesh_k1, "per_scene": scene_k1,
+                             "bands": n_bands,
+                             "sharded": sharded["raster_fwd"]},
+        "band_times": {k: {"full_ms": v["full"]["k1_ms"],
+                           "bands_ms": v["bands_k1_ms"]}
+                       for k, v in band_times.items()},
         "max_abs_err": nvs["anchor_err"],
         "ms": nvs["ms"], "plain_ms": nvs["plain_ms"],
         "bound_ms": nvs["bound_ms"], "bound_by": nvs["bound_by"],
@@ -2309,9 +2780,13 @@ def main(argv=None) -> int:
         "sources": [csrc + f for f in ("gof_decide.cu", "raster_bwd.cu",
                                        "gof_pair.cuh")],
         "replaces": "f3d_gaus_tpu/ops/pallas_raster.py:401",
-        "launches": train_k2 + scene_k2,
+        "launches": train_k2 + scene_k2 + n_bands + sharded["raster_bwd"],
         "launches_by_path": {"serving": 0, "training": train_k2, "mesh": 0,
-                             "per_scene": scene_k2},
+                             "per_scene": scene_k2, "bands": n_bands,
+                             "sharded": sharded["raster_bwd"]},
+        "band_times": {k: {"full_ms": v["full"]["k2_ms"],
+                           "bands_ms": v["bands_k2_ms"]}
+                       for k, v in band_times.items()},
         "max_abs_err": cano["max_abs_err"],
         "ms": cano["ms"], "plain_ms": cano["plain_ms"],
         "bound_ms": cano["bound_ms"], "bound_by": cano["bound_by"],
@@ -2339,10 +2814,12 @@ def main(argv=None) -> int:
         "name": "gof_decide", "route": "cuda",
         "source": csrc + "gof_decide.cu",
         "replaces": "f3d_gaus_tpu/ops/pallas_raster.py:262",
-        "launches": serve_decide + train_decide + mesh_k1 + scene_decide,
+        "launches": (serve_decide + train_decide + mesh_k1 + scene_decide
+                     + 2 * n_bands + sharded["gof_decide"]),
         "launches_by_path": {"serving": serve_decide,
                              "training": train_decide, "mesh": mesh_k1,
-                             "per_scene": scene_decide},
+                             "per_scene": scene_decide, "bands": 2 * n_bands,
+                             "sharded": sharded["gof_decide"]},
         "max_abs_err": int(any(m["bits_differ"] for m in masks)),
         "bits_differ": sum(m["bits_differ"] for m in masks),
         "ms": nvs["decide_ms"], "plain_ms": nvs["decide_plain_ms"],
@@ -2369,7 +2846,7 @@ def main(argv=None) -> int:
         "launches": mesh["launches"]["integrate"],
         "launches_by_path": {"serving": 0, "training": 0,
                              "mesh": mesh["launches"]["integrate"],
-                             "per_scene": 0},
+                             "per_scene": 0, "bands": 0, "sharded": 0},
         "max_abs_err": max(field["max_abs_err"],
                            field["running_min"]["max_abs_err"]),
         "ms": field["ms"], "plain_ms": field["plain_ms"],

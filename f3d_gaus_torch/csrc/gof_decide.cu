@@ -60,7 +60,8 @@ struct Params {
   const int* tile_count;   // (T,) unclamped
   int num_tiles;
   int grid_x;
-  float half_w, half_h;    // width / 2, height / 2
+  int row_off;             // global tile row of the band's first row
+  float half_w, half_h;    // the full frame's width / 2, height / 2
   float focal_x, focal_y;
   int max_per_tile;
   unsigned* mask;          // (slab / 32, kPix) words
@@ -113,8 +114,8 @@ gof_decide_kernel(const Params p) {
     unsigned bits[kPixPerThread];
 #pragma unroll
     for (int q = 0; q < kPixPerThread; ++q) {
-      pixel_ray(tx, ty, group + kGroups * q, p.half_w, p.half_h, p.focal_x,
-                p.focal_y, U[q], V[q]);
+      pixel_ray(tx, ty + p.row_off, group + kGroups * q, p.half_w, p.half_h,
+                p.focal_x, p.focal_y, U[q], V[q]);
       bits[q] = 0u;
     }
     const int valid = min(max(n - word * 32, 0), 32);   // slots in the window
@@ -162,7 +163,7 @@ gof_decide_kernel(const Params p) {
 extern "C" int f3d_gof_decide(
     int device, const float* allf, const int* point_list,
     const int* tile_start, const int* tile_count, int num_tiles, int grid_x,
-    float half_w, float half_h, float focal_x, float focal_y,
+    int row_off, float half_w, float half_h, float focal_x, float focal_y,
     int max_per_tile, int slab, unsigned* mask, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -175,8 +176,8 @@ extern "C" int f3d_gof_decide(
   if (err != cudaSuccess) return (int)err;
   const int grid = std::min(slab / kSlots, std::max(per_sm, 1) * sms);
   Params p{allf,    point_list, tile_start, tile_count, num_tiles,
-           grid_x,  half_w,     half_h,     focal_x,    focal_y,
-           max_per_tile, mask};
+           grid_x,  row_off,    half_w,     half_h,     focal_x,
+           focal_y, max_per_tile, mask};
   gof_decide_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

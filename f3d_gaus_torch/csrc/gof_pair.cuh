@@ -40,7 +40,9 @@ constexpr float kAlphaEps = 1.0f / 255.0f;
 constexpr float kStopT = 1e-4f;
 constexpr unsigned kFull = 0xffffffffu;
 
-// The ray d = (U, V, 1) of pixel `pix` of tile (tx, ty).
+// The ray d = (U, V, 1) of pixel `pix` of tile (tx, ty), ty the global tile
+// row (a band's own row plus its row_off), half_w and half_h the full
+// frame's.
 __device__ __forceinline__ void pixel_ray(int tx, int ty, int pix,
                                           float half_w, float half_h,
                                           float focal_x, float focal_y,

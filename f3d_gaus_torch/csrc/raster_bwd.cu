@@ -76,7 +76,8 @@ struct Params {
   const int* tile_count;   // (T,) unclamped
   const unsigned* mask;    // (slab / 32, kPix) decision words
   int grid_x;
-  float half_w, half_h;    // width / 2, height / 2
+  int row_off;             // global tile row of the band's first row
+  float half_w, half_h;    // the full frame's width / 2, height / 2
   float focal_x, focal_y;
   int max_per_tile;
   const float* bg;         // (3,)
@@ -156,7 +157,7 @@ raster_bwd_kernel(const Params p) {
   const int pix = gpix % kPix;
   const int lane = tid & 31;
   const int tx = tile % p.grid_x;
-  const int ty = tile / p.grid_x;
+  const int ty = tile / p.grid_x + p.row_off;   // the global tile row
   const int ix = tx * kBlock + pix % kBlock;
   const int iy = ty * kBlock + pix / kBlock;
   float U, V;
@@ -350,16 +351,17 @@ raster_bwd_kernel(const Params p) {
 extern "C" int f3d_raster_bwd(
     int device, const float* allf, const float* extra, const int* point_list,
     const int* tile_start, const int* tile_count, const unsigned* mask,
-    int num_tiles, int grid_x, float half_w, float half_h, float focal_x,
-    float focal_y, int max_per_tile, const float* bg, const float* g_out,
+    int num_tiles, int grid_x, int row_off, float half_w, float half_h,
+    float focal_x, float focal_y, int max_per_tile, const float* bg,
+    const float* g_out,
     const float* final_T, const float* dist1, const int* last_pos,
     const int* max_pos, float* d_feat, float* d_stats, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (num_tiles == 0) return 0;
   Params p{allf,     extra,   point_list, tile_start, tile_count, mask,
-           grid_x,   half_w,  half_h,     focal_x,    focal_y,
-           max_per_tile, bg,  g_out,      final_T,    dist1,
+           grid_x,   row_off, half_w,     half_h,     focal_x,
+           focal_y,  max_per_tile, bg,  g_out,      final_T,    dist1,
            last_pos, max_pos, d_feat,     d_stats};
   raster_bwd_kernel<<<num_tiles * kPix / kThreads, kThreads, 0,
                       (cudaStream_t)stream>>>(p);

@@ -59,7 +59,8 @@ struct Params {
   const int* tile_count;   // (T,) unclamped
   const unsigned* mask;    // (slab / 32, kPix) decision words
   int grid_x;
-  float half_w, half_h;    // width / 2, height / 2
+  int row_off;             // global tile row of the band's first row
+  float half_w, half_h;    // the full frame's width / 2, height / 2
   float focal_x, focal_y;
   int max_per_tile;
   const float* bg;         // (3,) background
@@ -168,8 +169,8 @@ raster_fwd_kernel(const Params p) {
   const int tile = gpix / kPix;
   const int pix = gpix % kPix;
   float U, V;
-  pixel_ray(tile % p.grid_x, tile / p.grid_x, pix, p.half_w, p.half_h,
-            p.focal_x, p.focal_y, U, V);
+  pixel_ray(tile % p.grid_x, tile / p.grid_x + p.row_off, pix, p.half_w,
+            p.half_h, p.focal_x, p.focal_y, U, V);
 
   const int start = p.tile_start[tile];
   const int n = min(p.tile_count[tile], p.max_per_tile);
@@ -253,16 +254,16 @@ raster_fwd_kernel(const Params p) {
 extern "C" int f3d_raster_fwd(
     int device, const float* allf, const int* point_list,
     const int* tile_start, const int* tile_count, const unsigned* mask,
-    int num_tiles, int grid_x, float half_w, float half_h, float focal_x,
-    float focal_y, int max_per_tile, const float* bg, float* out9,
-    float* final_T, float* dist1, float* dist2, float* raw_dist,
+    int num_tiles, int grid_x, int row_off, float half_w, float half_h,
+    float focal_x, float focal_y, int max_per_tile, const float* bg,
+    float* out9, float* final_T, float* dist1, float* dist2, float* raw_dist,
     int* last_pos, int* max_pos, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (num_tiles == 0) return 0;
   Params p{allf,     point_list, tile_start, tile_count, mask,
-           grid_x,   half_w,     half_h,     focal_x,    focal_y,
-           max_per_tile, bg,     out9,       final_T,    dist1,
+           grid_x,   row_off,    half_w,     half_h,     focal_x,
+           focal_y,  max_per_tile, bg,     out9,       final_T,    dist1,
            dist2,    raw_dist,   last_pos,   max_pos};
   raster_fwd_kernel<<<num_tiles * kPix / kThreads, kThreads, 0,
                       (cudaStream_t)stream>>>(p);

@@ -9,7 +9,8 @@ scene directory it
   3. fits a per-scene GOF model (train/per_scene.py),
   4. renders the test (and optionally train) split to renders/<name>.png
      next to gt/<name>.png   (render.py's render_set layout),
-  5. runs PSNR/SSIM over the pairs (eval.py / metrics.py:36-97),
+  5. runs PSNR/SSIM (and LPIPS, given `lpips_weights`) over the pairs
+     (eval.py / metrics.py:36-97),
 
 and writes per-split and per-scene results.json plus full_eval.json, the
 aggregate.  Runs on the card unless `device` (`--device`) says otherwise:
@@ -78,10 +79,9 @@ def run_scene(scene_dir: str, out_dir: str,
     with the caps planned (`caps="plan"`) or the config's ("fixed").
     Returns the summary dict: `overflow_steps` counts the training steps
     whose render the caps truncated, `overflow_<split>_renders` the
-    truncated renders of each split, `plan_s` the planning's seconds."""
+    truncated renders of each split, `plan_s` the planning's seconds;
+    with `lpips_weights` (a torchvision vgg16 .pt) `<split>_lpips` too."""
     dev = resolve_device(device)
-    if lpips_weights:
-        raise NotImplementedError(eval_mod.LPIPS_MISSING)
     data = _detect_and_load(scene_dir, n_init_points)
     train_cams, test_cams = _split(data.cameras, eval_split, llffhold)
     if not test_cams:
@@ -124,6 +124,7 @@ def run_scene(scene_dir: str, out_dir: str,
                       np.transpose(sc.image, (2, 0, 1)))
         results[split] = eval_mod.evaluate_dirs(
             rdir, gdir, out_json=os.path.join(out_dir, split, "results.json"),
+            lpips=bool(lpips_weights), lpips_weights=lpips_weights,
             device=dev)
     summary = {
         "scene": scene_dir,
@@ -177,7 +178,7 @@ def main(argv=None):
                     help="train on all views, test on the first")
     ap.add_argument("--render_train", action="store_true")
     ap.add_argument("--lpips_weights", default=None,
-                    help="LPIPS is not ported yet: any value raises")
+                    help="torchvision vgg16 state_dict .pt enabling LPIPS")
     ap.add_argument("--fixed_caps", action="store_true",
                     help="render at PerSceneConfig's caps (the JAX "
                          "package's; they truncate renders at 800x800) "

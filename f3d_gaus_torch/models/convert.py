@@ -5,6 +5,11 @@ f3d_gaus_tpu/models/convert.py).
     ({"encoder": {name: ...}, "out": {...}}, HWIO convolutions, numpy
     leaves) -> a GaussianPredictor state_dict (OIHW).  The inverse of the
     JAX converter's layout change.
+  * `vgg_from_jax(params)`, `lpips_lin_from_jax(lin)`, `clip_from_jax(
+    tree)`: the JAX package's VGG16 parameter list, LPIPS heads and CLIP
+    visual tree (numpy leaves) -> the port's models/vgg.py and
+    models/clip.py state_dicts, so both packages can compute the same
+    losses.
   * `load_torch_state_dict(path)` / `convert_checkpoint(path)`: the
     reference's pretrained .pt (GaussianSplatPredictor_gtunet weights under
     'gaussian_predictor.network_with_offset.', possibly with a DDP 'module.'
@@ -40,6 +45,54 @@ def params_from_jax(tree) -> dict:
     for leaf, w in tree["out"].items():
         k, t = _leaf(f"out.{leaf}", w)
         sd[k] = t
+    return sd
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, np.float32, copy=True))
+
+
+def _hwio_to_oihw(a):
+    return _t(np.transpose(np.asarray(a, np.float32), (3, 2, 0, 1)))
+
+
+def vgg_from_jax(params) -> dict:
+    """JAX models/vgg.py params (13 {"w": HWIO, "b"}) -> VGG16 state_dict."""
+    from .vgg import _CONV_IDX
+    sd = {}
+    for idx, p in zip(_CONV_IDX, params, strict=True):
+        sd[f"features.{idx}.weight"] = _hwio_to_oihw(p["w"])
+        sd[f"features.{idx}.bias"] = _t(p["b"])
+    return sd
+
+
+def lpips_lin_from_jax(lin) -> list:
+    """JAX LPIPS heads (five (C,) arrays) -> five (C,) tensors."""
+    return [_t(w).reshape(-1) for w in lin]
+
+
+def clip_from_jax(tree) -> dict:
+    """JAX models/clip.py visual tree -> CLIPVisual state_dict (OpenAI's
+    `visual.*` names without the prefix; the patch conv HWIO -> OIHW)."""
+    def ln(name, p):
+        return {f"{name}.weight": _t(p["g"]), f"{name}.bias": _t(p["b"])}
+    sd = {"conv1.weight": _hwio_to_oihw(tree["conv1_w"]),
+          "class_embedding": _t(tree["class_embedding"]),
+          "positional_embedding": _t(tree["positional_embedding"]),
+          "proj": _t(tree["proj"]),
+          **ln("ln_pre", tree["ln_pre"]), **ln("ln_post", tree["ln_post"])}
+    for i, b in enumerate(tree["blocks"]):
+        pfx = f"transformer.resblocks.{i}"
+        sd.update(ln(f"{pfx}.ln_1", b["ln_1"]))
+        sd.update(ln(f"{pfx}.ln_2", b["ln_2"]))
+        sd[f"{pfx}.attn.in_proj_weight"] = _t(b["attn"]["in_w"])
+        sd[f"{pfx}.attn.in_proj_bias"] = _t(b["attn"]["in_b"])
+        sd[f"{pfx}.attn.out_proj.weight"] = _t(b["attn"]["out_w"])
+        sd[f"{pfx}.attn.out_proj.bias"] = _t(b["attn"]["out_b"])
+        sd[f"{pfx}.mlp.c_fc.weight"] = _t(b["mlp_fc_w"])
+        sd[f"{pfx}.mlp.c_fc.bias"] = _t(b["mlp_fc_b"])
+        sd[f"{pfx}.mlp.c_proj.weight"] = _t(b["mlp_proj_w"])
+        sd[f"{pfx}.mlp.c_proj.bias"] = _t(b["mlp_proj_b"])
     return sd
 
 

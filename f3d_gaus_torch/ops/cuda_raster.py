@@ -18,6 +18,9 @@ tensors.  rasterize.composite picks between them and the plain PyTorch
 versions (rasterize._contrib_mask_impl, _composite_fwd_impl,
 _composite_bwd_impl).  `integrate` launches the field query; ops/
 integrate.py picks between it and its plain version (_alpha_impl).
+A band of a frame (rasterize.render(tile_rows=...)) launches the same
+kernels with the statics' row_off, the global tile row of the band's
+first row; the rays keep the full frame's half width and height.
 `launches_decide`, `launches`, `launches_bwd` and `launches_integrate`
 count the launches of the four kernels.
 """
@@ -84,12 +87,12 @@ def build_key(csrc: Path = CSRC, flags=NVCC_FLAGS) -> str:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {   # by entry point
-    "f3d_gof_decide": [_I, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I,
-                       _P, _P],
-    "f3d_raster_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I,
-                       _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "f3d_raster_bwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
+    "f3d_gof_decide": [_I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I,
+                       _I, _P, _P],
+    "f3d_raster_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
                        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "f3d_raster_bwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+                       _F, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "f3d_integrate_prep": [_I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P,
                            _P, _P],
     "f3d_integrate": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I,
@@ -202,7 +205,7 @@ def decide(allf, point_list, tile_start, tile_count, s: "R.RasterStatics"):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = load()["decide"].f3d_gof_decide(
         _device_index(dev), allf.data_ptr(), point_list.data_ptr(),
-        tile_start.data_ptr(), tile_count.data_ptr(), T, s.grid_x,
+        tile_start.data_ptr(), tile_count.data_ptr(), T, s.grid_x, s.row_off,
         s.width / 2.0, s.height / 2.0, s.focal_x, s.focal_y, s.max_per_tile,
         point_list.shape[0], mask.data_ptr(), stream)
     if err != 0:
@@ -234,8 +237,8 @@ def composite_fwd(allf, point_list, tile_start, tile_count, bg,
     err = load()["fwd"].f3d_raster_fwd(
         _device_index(dev), allf.data_ptr(), point_list.data_ptr(),
         tile_start.data_ptr(), tile_count.data_ptr(), mask.data_ptr(), T,
-        s.grid_x, s.width / 2.0, s.height / 2.0, s.focal_x, s.focal_y,
-        s.max_per_tile, bg.data_ptr(), out.data_ptr(),
+        s.grid_x, s.row_off, s.width / 2.0, s.height / 2.0, s.focal_x,
+        s.focal_y, s.max_per_tile, bg.data_ptr(), out.data_ptr(),
         *(t.data_ptr() for t in fl), *(t.data_ptr() for t in it), stream)
     if err != 0:
         raise RuntimeError(f"raster_fwd kernel launch failed: CUDA error {err}")
@@ -277,8 +280,8 @@ def composite_bwd(allf, extra, point_list, tile_start, tile_count, bg,
     err = load()["bwd"].f3d_raster_bwd(
         _device_index(dev), allf.data_ptr(), extra.data_ptr(),
         point_list.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
-        mask.data_ptr(), T, s.grid_x, s.width / 2.0, s.height / 2.0,
-        s.focal_x, s.focal_y, s.max_per_tile, bg.data_ptr(),
+        mask.data_ptr(), T, s.grid_x, s.row_off, s.width / 2.0,
+        s.height / 2.0, s.focal_x, s.focal_y, s.max_per_tile, bg.data_ptr(),
         g_out.data_ptr(), aux.final_T.data_ptr(), aux.dist1.data_ptr(),
         aux.last_pos.data_ptr(), aux.max_pos.data_ptr(), d_feat.data_ptr(),
         d_stats.data_ptr(), stream)

@@ -75,6 +75,10 @@ class RasterStatics(NamedTuple):
     max_per_tile: int    # per-tile compositing window K
     chunk: int           # Gaussians per step of the plain version
     lanes: int = 128     # binning slab alignment
+    # A band of a frame (render(tile_rows=...)): the statics' grid_y tile
+    # rows start at global tile row row_off, while width, height and the
+    # focals stay the full frame's, whose principal point the rays need.
+    row_off: int = 0
 
 
 class RenderAux(NamedTuple):
@@ -88,10 +92,11 @@ class RenderAux(NamedTuple):
 
 
 def _tile_rays(s: RasterStatics, device):
-    """Per-tile pixel rays: u, v of shape (num_tiles, PIX)."""
+    """Per-tile pixel rays: u, v of shape (num_tiles, PIX), the tile rows
+    shifted by the band's s.row_off."""
     tiles = torch.arange(s.grid_x * s.grid_y, dtype=torch.int32, device=device)
     tx = (tiles % s.grid_x)[:, None]
-    ty = (tiles // s.grid_x)[:, None]
+    ty = (tiles // s.grid_x)[:, None] + s.row_off
     p = torch.arange(PIX, dtype=torch.int32, device=device)
     ix = (p % BLOCK)[None, :]
     iy = (p // BLOCK)[None, :]
@@ -565,7 +570,8 @@ def prepare(means3d, scales, quats, opacities, shs, camera, bg=None, *,
             sh_degree: int = 1, kernel_size: float = 0.0,
             scale_modifier: float = 1.0, pair_cap: int = 1 << 18,
             max_per_tile: int = 1024, chunk: int = 128, colors_precomp=None,
-            means2d_stats=None, mask=None, device=None) -> CompositeInputs:
+            means2d_stats=None, mask=None, device=None,
+            tile_rows=None) -> CompositeInputs:
     """Preprocess and bin one Gaussian set for one camera (the part of
     `render` before compositing; same arguments)."""
     dev = resolve_device(device, means3d if torch.is_tensor(means3d) else None)
@@ -587,49 +593,96 @@ def prepare(means3d, scales, quats, opacities, shs, camera, bg=None, *,
     stats = (torch.zeros((means3d.shape[0], 3), device=dev)
              if means2d_stats is None else means2d_stats)
 
-    width, height = camera.width, camera.height
-    # window and slab alignment: 256 whenever the window allows it
-    lanes = 256 if max_per_tile % 256 == 0 else 128
-    pair_cap = ((pair_cap + lanes - 1) // lanes) * lanes
-    bng = B.bin_gaussians(pre.means2d, pre.radii, pre.depths, width, height,
-                          pair_cap, max_per_tile=max_per_tile, align=lanes)
-    statics = RasterStatics(width=width, height=height,
-                            grid_x=bng.grid[0], grid_y=bng.grid[1],
-                            focal_x=float(camera.focal_x),
-                            focal_y=float(camera.focal_y),
-                            max_per_tile=max_per_tile, chunk=chunk,
-                            lanes=lanes)
+    bng, statics = bin_band(pre.means2d, pre.radii, pre.depths, camera,
+                            tile_rows, pair_cap=pair_cap,
+                            max_per_tile=max_per_tile, chunk=chunk)
     bg = (torch.zeros(3, device=dev) if bg is None
           else _as_tensor(bg, dev).detach().reshape(3).contiguous())
     return CompositeInputs(pre, rgb, opa, stats, bng, statics, bg)
 
 
-def composite(inp: CompositeInputs, backend: str = "auto"):
-    """Composite prepared inputs, differentiably.  backend 'auto' runs the
-    kernels (cuda_raster.composite_fwd, and composite_bwd for the
+def bin_band(means2d, radii, depths, camera, tile_rows=None, *,
+             pair_cap: int, max_per_tile: int, chunk: int):
+    """The binning and statics of a frame (tile_rows None) or of the band
+    (row_off, n_rows): for a band the Gaussians move into band-local pixel
+    space for the binning only, whose grid is the band's n_rows tile rows;
+    the statics keep the frame's geometry and carry row_off."""
+    row_off, n_rows = band_rows(tile_rows, camera)
+    bin_m2d, bin_h = means2d, camera.height
+    if tile_rows is not None:
+        bin_m2d = means2d - means2d.new_tensor([0.0, float(row_off * BLOCK)])
+        bin_h = n_rows * BLOCK
+    # window and slab alignment: 256 whenever the window allows it
+    lanes = 256 if max_per_tile % 256 == 0 else 128
+    pair_cap = ((pair_cap + lanes - 1) // lanes) * lanes
+    bng = B.bin_gaussians(bin_m2d, radii, depths, camera.width, bin_h,
+                          pair_cap, max_per_tile=max_per_tile, align=lanes)
+    statics = RasterStatics(width=camera.width, height=camera.height,
+                            grid_x=bng.grid[0], grid_y=bng.grid[1],
+                            focal_x=float(camera.focal_x),
+                            focal_y=float(camera.focal_y),
+                            max_per_tile=max_per_tile, chunk=chunk,
+                            lanes=lanes, row_off=row_off)
+    return bng, statics
+
+
+def band_rows(tile_rows, camera):
+    """(row_off, n_rows) of a band as Python ints, (0, all rows) for None;
+    raises on a band that does not lie inside the frame's tile rows."""
+    grid_y = -(-camera.height // BLOCK)
+    if tile_rows is None:
+        return 0, grid_y
+    row_off, n_rows = (int(r) for r in tile_rows)
+    if row_off < 0 or n_rows < 1 or row_off + n_rows > grid_y:
+        raise ValueError(f"tile_rows {(row_off, n_rows)} is not a band of "
+                         f"the frame's {grid_y} tile rows")
+    return row_off, n_rows
+
+
+def composite_from_features(feat, extra, binning: B.Binning,
+                            statics: RasterStatics, bg, backend: str = "auto",
+                            stats=None):
+    """Composite from the (P, NFEAT) feature table (cuda_raster.
+    _all_features) and the (P, 5) conic | means2d table, differentiably in
+    `feat` and in `stats` (an optional (P, 3) dummy whose gradient receives
+    the densification statistics); extra, the binning and bg take none.
+    The entry the tile-sharded renderer gathers its table into (the JAX
+    package's pallas_raster.composite_from_features).  backend 'auto' runs
+    the kernels (cuda_raster.composite_fwd, and composite_bwd for the
     gradient) for CUDA tensors and the plain versions for CPU tensors;
-    'torch' always takes the plain versions.  Gradients reach v2g_mb, rgb
-    and opa through the feature table and `inp.stats` through the stats
-    dummy; conic, means2d and bg take none.  Returns (out (num_tiles, PIX,
-    9), RenderAux)."""
+    'torch' always takes the plain versions.  Returns (out (num_tiles,
+    PIX, 9), RenderAux)."""
     if backend not in ("auto", "torch"):
         raise ValueError(f"unknown backend {backend!r}")
-    from . import cuda_raster
-    pre, bng = inp.pre, inp.binning
-    feat = cuda_raster._all_features(pre.v2g_mb, inp.rgb, inp.opa)
-    extra = torch.cat([pre.conic, pre.means2d], 1).detach()
+    if stats is None:
+        stats = feat.new_zeros((feat.shape[0], 3))
     kernel = backend == "auto" and feat.device.type != "cpu"
-    out, *aux = _Composite.apply(feat, inp.stats, extra, bng.point_list,
-                                 bng.tile_start, bng.tile_count, inp.bg,
-                                 inp.statics, kernel)
+    out, *aux = _Composite.apply(feat, stats, extra.detach(),
+                                 binning.point_list, binning.tile_start,
+                                 binning.tile_count, bg, statics, kernel)
     return out, RenderAux(*aux)
+
+
+def composite(inp: CompositeInputs, backend: str = "auto"):
+    """Composite prepared inputs, differentiably (composite_from_features
+    on their feature table).  Gradients reach v2g_mb, rgb and opa through
+    the feature table and `inp.stats` through the stats dummy; conic,
+    means2d and bg take none.  Returns (out (num_tiles, PIX, 9),
+    RenderAux)."""
+    from . import cuda_raster
+    pre = inp.pre
+    feat = cuda_raster._all_features(pre.v2g_mb, inp.rgb, inp.opa)
+    extra = torch.cat([pre.conic, pre.means2d], 1)
+    return composite_from_features(feat, extra, inp.binning, inp.statics,
+                                   inp.bg, backend, inp.stats)
 
 
 def render(means3d, scales, quats, opacities, shs, camera, bg=None, *,
            sh_degree: int = 1, kernel_size: float = 0.0,
            scale_modifier: float = 1.0, pair_cap: int = 1 << 18,
            max_per_tile: int = 1024, chunk: int = 128, colors_precomp=None,
-           means2d_stats=None, mask=None, backend: str = "auto", device=None):
+           means2d_stats=None, mask=None, backend: str = "auto", device=None,
+           tile_rows=None):
     """Render one Gaussian set through one camera, differentiably in the
     five Gaussian inputs (and colors_precomp).
 
@@ -641,6 +694,11 @@ def render(means3d, scales, quats, opacities, shs, camera, bg=None, *,
     gradient receives the densification statistics (the reference's
     screenspace_points dummy).
 
+    tile_rows: None for the full frame, or (row_off, n_rows) to render only
+    the band of n_rows 16-pixel tile rows from global tile row row_off (the
+    unit of parallel/sharded.py); the images are then n_rows * 16 rows
+    high.  A band of CUDA tensors runs the same kernels as a frame.
+
     Returns a dict with keys render (3,H,W), rendered_normal (camera space,
     unnormalized), rendered_depth, rendered_alpha, distortion_map, out9,
     radii, aux, binning and overflow (a 0-dim bool tensor: True iff
@@ -651,9 +709,12 @@ def render(means3d, scales, quats, opacities, shs, camera, bg=None, *,
                   scale_modifier=scale_modifier, pair_cap=pair_cap,
                   max_per_tile=max_per_tile, chunk=chunk,
                   colors_precomp=colors_precomp, means2d_stats=means2d_stats,
-                  mask=mask, device=device)
+                  mask=mask, device=device, tile_rows=tile_rows)
     out, aux = composite(inp, backend)
-    img = _tiles_to_image(out, inp.statics)
+    s = inp.statics
+    # a band's image is its own grid_y * 16 rows high
+    img = _tiles_to_image(out, s if tile_rows is None else s._replace(
+        height=s.grid_y * BLOCK))
     bng = inp.binning
     overflow = bng.overflow | torch.any(bng.tile_count > max_per_tile)
     return {

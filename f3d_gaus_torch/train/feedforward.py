@@ -18,8 +18,14 @@ opt.*), with every loss the config names:
                        one N = 2 call, its Gaussians rendered at the
                        canonical camera, vs the input
 
-w_perceptual and w_clip need the VGG16 / CLIP towers, which the port does
-not have (their weights are not in the repository): nonzero weights raise.
+  w_perceptual         VGG16 feature L1 of the canonical render vs the input
+                       (models/vgg.py)
+  w_clip               1 - cosine of the CLIP ViT-B/32 embeddings of the
+                       clipped canonical render and the input (models/clip.py)
+
+The two towers' weights are files the user supplies (vgg.load_towers,
+clip.load_tower); nonzero w_perceptual / w_clip without their tower raise.
+The towers are frozen and stay out of the optimizer.
 
 The novel-view difficulty curriculum (yaml start_diff 24 -> final_diff 6,
 denominator2 18 over [start_iter, end_iter]) picks, per step, a camera from
@@ -34,6 +40,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import cameras as C
 from ..core.device import StageClock, resolve_device
@@ -54,8 +61,8 @@ class LossWeights(NamedTuple):
     w_distortion: float = 0.0
     w_warping: float = 10.0
     w_cycle: float = 10.0          # yaml w_prop
-    w_perceptual: float = 0.0      # needs the VGG tower; must stay 0 here
-    w_clip: float = 0.0            # needs the CLIP tower; must stay 0 here
+    w_perceptual: float = 0.0      # yaml 2; needs towers["vgg"]
+    w_clip: float = 0.0            # yaml 0.35; needs towers["clip"]
     warp_alpha_threshold: float = 0.9   # yaml model.threshold
 
 
@@ -160,17 +167,28 @@ def cycle_predict(model, target, depth, o_render, o_alpha, o_depth,
 
 def loss_fn(model, cfg: PipelineConfig, batch, cameras_pack: CamerasPack,
             w: LossWeights = LossWeights(), step: int = 0,
-            cur: Curriculum = Curriculum()):
+            cur: Curriculum = Curriculum(), towers=None):
     """The full multi-term objective.  batch: images (B, H, W, 3) in
     [0, 1] and depth (B, H, W), tensors or arrays (moved to the model's
-    device); step drives the novel-view curriculum.  Returns (loss, aux):
-    aux holds l1, ssim, psnr, each weighted term as loss_<name>, and
+    device); step drives the novel-view curriculum; towers: an optional
+    dict with 'vgg' (models/vgg.VGG16) and/or 'clip' (models/clip.
+    CLIPVisual), frozen, activating w_perceptual / w_clip.  Returns (loss,
+    aux): aux holds l1, ssim, psnr, each weighted term as loss_<name>, and
     `overflow`, the (3B,) bool map of the step's renders (canonical and
     novel per image, then the cycle render per image)."""
-    if w.w_perceptual or w.w_clip:
+    towers = towers or {}
+    if w.w_perceptual and "vgg" not in towers:
         raise NotImplementedError(
-            "w_perceptual / w_clip need the VGG16 / CLIP towers, whose "
-            "converted weights the port does not have")
+            "w_perceptual needs the VGG16 tower: pass towers={'vgg': "
+            "models.vgg.load_towers(path)[0]}")
+    if w.w_clip and "clip" not in towers:
+        raise NotImplementedError(
+            "w_clip needs the CLIP tower: pass towers={'clip': "
+            "models.clip.load_tower(path)}")
+    for name, tower in towers.items():
+        if any(p.requires_grad for p in tower.parameters()):
+            raise ValueError(f"the {name} tower must be frozen "
+                             f"(requires_grad_(False))")
     dev = next(model.parameters()).device
     images, depth = _t(batch["images"], dev), _t(batch["depth"], dev)
     pack = cameras_pack
@@ -203,6 +221,14 @@ def loss_fn(model, cfg: PipelineConfig, batch, cameras_pack: CamerasPack,
         r_normal, d_normal, cover[:, 0])
     terms["alpha"] = w.w_alpha * (r_alpha - 1.0).abs().mean()
     terms["tv"] = w.w_tv * losses.tv(r_depth)
+    if w.w_perceptual:
+        from ..models import vgg
+        terms["perceptual"] = w.w_perceptual * vgg.perceptual_loss(
+            towers["vgg"], recon, target)
+    if w.w_clip:
+        from ..models import clip
+        terms["clip"] = w.w_clip * clip.clip_loss(
+            towers["clip"], recon.clamp(0.0, 1.0), target)
     if w.w_distortion:
         terms["distortion"] = w.w_distortion * views["distortion_map"][:, 0].abs().mean()
 
@@ -244,10 +270,21 @@ def loss_fn(model, cfg: PipelineConfig, batch, cameras_pack: CamerasPack,
 
 def train_step(state: TrainState, cfg: PipelineConfig, batch,
                cameras_pack: CamerasPack, weights: LossWeights = LossWeights(),
-               cur: Curriculum = Curriculum(), timings=None):
+               cur: Curriculum = Curriculum(), timings=None, towers=None,
+               group=None):
     """One optimizer step, in place: state.model's parameters, the Adam
     moments and state.step advance (the PyTorch idiom; the JAX step
-    returns a new state).  Returns (loss, aux) as loss_fn, detached.
+    returns a new state).  Returns (loss, aux) as loss_fn, detached;
+    `towers` as loss_fn's.
+
+    `group`: a torch.distributed process group of data-parallel ranks
+    (parallel/mesh.py:sharded_train_step), each with its own slice of the
+    batch.  The overflow count is then summed over the group before any
+    rank decides, so all raise together, and the gradients are averaged
+    over it before the update (DistributedDataParallel's semantics,
+    written out: the predictor runs twice before one backward, and an
+    overflow leaves a forward without its backward, neither of which
+    DistributedDataParallel's reducer allows).
 
     Raises renderer.RenderOverflow, before any backward or update, if a
     render of the step exceeded cfg.pair_cap / cfg.max_per_tile: the
@@ -258,15 +295,27 @@ def train_step(state: TrainState, cfg: PipelineConfig, batch,
     clock = StageClock(dev, timings)
     state.optimizer.zero_grad(set_to_none=True)
     loss, aux = loss_fn(state.model, cfg, batch, cameras_pack, weights,
-                        state.step, cur)
+                        state.step, cur, towers)
     clock.lap("forward")
-    n_over = int(aux["overflow"].sum())
+    counts = torch.stack([aux["overflow"].sum(),
+                          torch.tensor(aux["overflow"].numel(), device=dev)])
+    if group is not None:
+        dist.all_reduce(counts, group=group)
+    n_over, n_renders = (int(c) for c in counts)
     if n_over:
         raise renderer.RenderOverflow(
-            f"{n_over} of {aux['overflow'].numel()} renders exceeded the "
+            f"{n_over} of {n_renders} renders exceeded the "
             f"static caps (pair_cap={cfg.pair_cap}, max_per_tile="
             f"{cfg.max_per_tile}); double the caps and run the step again")
     loss.backward()
+    if group is not None:
+        grads = [p.grad for p in state.model.parameters()
+                 if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=group)
+        flat /= dist.get_world_size(group)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
     clock.lap("backward")
     state.optimizer.step()
     state.step += 1

@@ -1,2 +1,3 @@
-"""Utilities: the viewer socket and logging (counterpart of
-f3d_gaus_tpu/utils/)."""
+"""Utilities: tracing and timing, the viewer socket and logging
+(counterpart of f3d_gaus_tpu/utils/)."""
+from . import profiling, logging  # noqa: F401

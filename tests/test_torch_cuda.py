@@ -151,6 +151,56 @@ def test_bwd_kernel_matches_plain(cuda, case):
         assert ((got - ref).abs() <= tol).all()
 
 
+BAND_CASES = [(name, (1, 1)) for name in CASE_NAMES] + [
+    ("sharded64x128", (2, 2)), ("sharded64x128", (5, 3))]
+
+
+def _band_case(name):
+    if name == "sharded64x128":
+        cam, cloud = torch_cases.setup(np.random.default_rng(0), n=64,
+                                       width=64, height=128)
+        return cam, cloud, np.array([0.1, 0.2, 0.3], np.float32), dict(
+            pair_cap=1 << 13, max_per_tile=256, chunk=32)
+    return next(c[1:] for c in torch_cases.small_cases() if c[0] == name)
+
+
+@pytest.mark.parametrize("case,tile_rows", BAND_CASES)
+def test_band_kernels_match_plain_band(cuda, case, tile_rows):
+    """A band (row_off > 0) through the three kernels against the plain
+    versions of the same band: the mask word for word, out9 and final_T at
+    1e-4 with the positions equal, d_feat / d_stats within 5e-3 x max |g|
+    per column."""
+    cam, cloud, bg, kw = _band_case(case)
+    inp = TR.prepare(*[torch.from_numpy(a).to(cuda) for a in cloud], cam,
+                     torch.from_numpy(bg).to(cuda), tile_rows=tile_rows, **kw)
+    s = inp.statics
+    assert s.row_off == tile_rows[0] > 0 and s.grid_y == tile_rows[1]
+    assert s.height == cam.height
+    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
+    extra = torch.cat([inp.pre.conic, inp.pre.means2d], 1).detach()
+    b = inp.binning
+    slab = (b.point_list, b.tile_start, b.tile_count)
+    k = cuda_raster.decide(feat, *slab, s)
+    p = TR._contrib_mask_impl(feat, *slab, s)
+    used = TR.mask_words_used(b.tile_start, b.tile_count, s)
+    assert torch.equal(k[:used], p[:used])
+    ko, ka = cuda_raster.composite_fwd(feat, *slab, inp.bg, s)
+    po, pa = TR._composite_fwd_impl(feat, *slab, inp.bg, s)
+    torch.testing.assert_close(ko, po, atol=1e-4, rtol=0)
+    torch.testing.assert_close(ka.final_T, pa.final_T, atol=1e-4, rtol=0)
+    assert torch.equal(ka.last_pos, pa.last_pos)
+    assert torch.equal(ka.max_pos, pa.max_pos)
+    g = np.random.default_rng(0).normal(size=tuple(ko.shape)).astype(np.float32)
+    g[..., 7] = 0.0
+    g = torch.from_numpy(g).to(cuda)
+    kb = cuda_raster.composite_bwd(feat, extra, *slab, inp.bg, ka, g, s)
+    pb = TR._composite_bwd_impl(feat, extra, *slab, inp.bg, ka, g, s)
+    for got, ref in zip(kb, pb):
+        assert torch.isfinite(got).all()
+        tol = 5e-3 * ref.abs().amax(0, keepdim=True)
+        assert ((got - ref).abs() <= tol).all()
+
+
 def test_bwd_wrapper_rejects_bad_inputs(cuda):
     feat, extra, slab, aux, g, s = _bwd_inputs("cloud96_mpt128", cuda)
     with pytest.raises(ValueError):

@@ -1,5 +1,5 @@
 """f3d_gaus_torch.eval and full_eval on the CPU: evaluate_dirs against
-f3d_gaus_tpu.eval on the same PNGs, the LPIPS gate, a run_scene /
+f3d_gaus_tpu.eval on the same PNGs, LPIPS from given weights, a run_scene /
 full_eval layout smoke on a tiny Blender scene (device="cpu"), and the
 copied utilities (the viewer socket's round trip, the logging sinks)."""
 import json
@@ -54,13 +54,37 @@ def test_evaluate_dirs_matches_jax(tmp_path):
     assert json.load(open(out)) == t
 
 
+def _vgg_files(root, seed=0):
+    """A seeded torchvision-keyed vgg16 state_dict and LPIPS heads as .pt
+    files (no pretrained file is in the repository)."""
+    from f3d_gaus_torch.models import vgg as TV
+    net = TV.VGG16(torch.Generator().manual_seed(seed))
+    torch.save(net.state_dict(), root / "vgg16.pt")
+    rng = np.random.default_rng(seed)
+    torch.save({f"lin.{i}.1.weight": torch.from_numpy(
+        rng.uniform(0, 1, (1, c, 1, 1)).astype(np.float32))
+        for i, c in enumerate(TV.N_CHANNELS)}, root / "lin.pt")
+    return str(root / "vgg16.pt"), str(root / "lin.pt")
+
+
 def test_lpips_is_gated(tmp_path):
+    """As in the JAX package: lpips=True raises only without weights; with
+    them, LPIPS (with and without the learned heads) equals JAX's."""
     with pytest.raises(NotImplementedError, match="VGG16 tower"):
         TE.evaluate_dirs(str(tmp_path), str(tmp_path), lpips=True,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="VGG16 tower"):
-        TFE.run_scene(str(tmp_path), str(tmp_path / "out"),
-                      lpips_weights="vgg16.pt", device="cpu")
+    rd, gd = _write_pngs(tmp_path, np.random.default_rng(1))
+    vgg_pt, lin_pt = _vgg_files(tmp_path)
+    for lin in (None, lin_pt):
+        j = JE.evaluate_dirs(rd, gd, lpips=True, lpips_weights=vgg_pt,
+                             lpips_lin_weights=lin)
+        t = TE.evaluate_dirs(rd, gd, lpips=True, lpips_weights=vgg_pt,
+                             lpips_lin_weights=lin, device="cpu")
+        assert set(t["mean"]) == set(j["mean"]) == {"psnr", "ssim", "lpips"}
+        for name, vals in j["per_image"].items():
+            for k, v in vals.items():
+                np.testing.assert_allclose(t["per_image"][name][k], v,
+                                           rtol=1e-4)
 
 
 def _write_blender_scene(root, rng, n_views=9, res=32):
@@ -97,6 +121,24 @@ def _write_blender_scene(root, rng, n_views=9, res=32):
         arr = (np.clip(np.transpose(img, (1, 2, 0)), 0, 1)
                * 255).astype(np.uint8)
         Image.fromarray(arr).save(os.path.join(root, f"train/r_{i}.png"))
+
+
+def test_run_scene_reports_lpips(tmp_path):
+    """run_scene with `lpips_weights` reports each split's LPIPS beside
+    PSNR/SSIM, as the JAX package's does."""
+    scene_dir = tmp_path / "scene1"
+    _write_blender_scene(str(scene_dir), np.random.default_rng(0))
+    cfg = TP.PerSceneConfig(
+        iterations=4, densify_until_iter=0, opacity_reset_interval=1000,
+        sh_degree=1, pair_cap=1 << 12, max_per_tile=512, chunk=64,
+        cap_bucket=128)
+    vgg_pt, _ = _vgg_files(tmp_path)
+    summary = TFE.run_scene(str(scene_dir), str(tmp_path / "out"), cfg=cfg,
+                            lpips_weights=vgg_pt, n_init_points=200,
+                            device="cpu")
+    assert np.isfinite(summary["test_lpips"]) and summary["test_lpips"] > 0
+    res = json.load(open(tmp_path / "out" / "test" / "results.json"))
+    assert set(res["mean"]) == {"psnr", "ssim", "lpips"}
 
 
 def test_full_eval_layout_on_cpu(tmp_path):

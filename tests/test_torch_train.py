@@ -195,12 +195,31 @@ def test_train_step_refuses_truncated_renders():
 
 
 def test_perceptual_and_clip_are_gated():
+    """As in the JAX package: a nonzero w_perceptual / w_clip raises only
+    without its tower; a tower that is not frozen is refused; with both
+    towers the two terms are finite and the towers take no gradient."""
+    from f3d_gaus_torch.models import clip as TCl
+    from f3d_gaus_torch.models import vgg as TV
     cfg, state = _state()
     pack = TF.make_cameras_pack(cfg, TD.canonical_cameras(cfg))
+    b = batch(np.random.default_rng(6), 1)
     for w in (TF.LossWeights(w_perceptual=1.0), TF.LossWeights(w_clip=0.3)):
         with pytest.raises(NotImplementedError):
-            TF.loss_fn(state.model, cfg, batch(np.random.default_rng(6), 1),
-                       pack, w)
+            TF.loss_fn(state.model, cfg, b, pack, w)
+    gen = torch.Generator().manual_seed(1)
+    towers = {"vgg": TV.VGG16(gen), "clip": TCl.CLIPVisual(7, gen)}
+    w = TF.LossWeights(w_perceptual=2.0, w_clip=0.35)
+    with pytest.raises(ValueError, match="frozen"):
+        TF.loss_fn(state.model, cfg, b, pack, w, towers=towers)
+    for t in towers.values():
+        t.requires_grad_(False)
+    loss, aux = TF.loss_fn(state.model, cfg, b, pack, w, towers=towers)
+    terms = [aux["loss_perceptual"].detach(), aux["loss_clip"].detach()]
+    assert all(torch.isfinite(t) and float(t) > 0 for t in terms)
+    loss.backward()
+    assert state.model.out.weight.grad is not None
+    assert all(p.grad is None for t in towers.values()
+               for p in t.parameters())
 
 
 def test_checkpoint_round_trip(tmp_path):

@@ -33,7 +33,9 @@ from test_torch_train import TINY, batch
 torch.set_num_threads(1)
 
 
-def test_loss_fn_terms_and_param_grads_match_jax():
+def _setup():
+    """(jcfg, tcfg, pcfg, port model, JAX params, JAX pack, port pack) on
+    the same weights, the head's biases set as the module docstring says."""
     jcfg, tcfg = JC.PipelineConfig(**TINY), TC.PipelineConfig(**TINY)
     pcfg = jcfg.predictor_config()
     state = TF.init_state(torch.Generator().manual_seed(0), tcfg,
@@ -53,6 +55,11 @@ def test_loss_fn_terms_and_param_grads_match_jax():
             jcfg.fov_deg, jcfg.radius, jcfg.look_at_z, jcfg.z_near, jcfg.z_far)
     jpack = JF.make_cameras_pack(jcfg, DS)
     tpack = TF.make_cameras_pack(tcfg, TD.canonical_cameras(tcfg))
+    return jcfg, tcfg, pcfg, model, params, jpack, tpack
+
+
+def test_loss_fn_terms_and_param_grads_match_jax():
+    jcfg, tcfg, pcfg, model, params, jpack, tpack = _setup()
     b = batch(np.random.default_rng(0), 2)
     step = 3                       # a novel camera off the bank's first view
 
@@ -74,3 +81,38 @@ def test_loss_fn_terms_and_param_grads_match_jax():
         r = ref[name].numpy()
         np.testing.assert_allclose(p.grad.numpy(), r, rtol=0,
                                    atol=5e-3 * np.abs(r).max(), err_msg=name)
+
+
+def test_tower_terms_match_jax():
+    """With the VGG16 and CLIP towers given (random weights, the port's
+    carried into JAX by the JAX package's converters), loss_fn at the
+    reference yaml's w_perceptual 2 / w_clip 0.35 gives every term within
+    1e-4 relative of JAX's, loss_perceptual and loss_clip included."""
+    from f3d_gaus_tpu.models import clip as JCl
+    from f3d_gaus_tpu.models import vgg as JV
+    from f3d_gaus_torch.models import clip as TCl
+    from f3d_gaus_torch.models import vgg as TV
+    jcfg, tcfg, pcfg, model, params, jpack, tpack = _setup()
+    gen = torch.Generator().manual_seed(2)
+    vgg = TV.VGG16(gen).requires_grad_(False)
+    clip = TCl.CLIPVisual(7, gen).requires_grad_(False)
+    jtowers = {
+        "vgg": JV.convert_torch_vgg16(
+            {k: v.numpy() for k, v in vgg.state_dict().items()}),
+        "clip": JCl.convert_torch_clip_visual(
+            {f"visual.{k}": v.numpy() for k, v in clip.state_dict().items()})}
+    w = TF.LossWeights(w_perceptual=2.0, w_clip=0.35)
+    b = batch(np.random.default_rng(1), 1)
+    step = 3
+    lj, aux_j = jax.jit(JF.loss_fn, static_argnums=(1, 2, 5, 7))(
+        params, jcfg, pcfg, {k: jnp.asarray(v) for k, v in b.items()}, jpack,
+        JF.LossWeights(*w), step, JF.Curriculum(), jtowers)
+    with torch.no_grad():
+        lt, aux_t = TF.loss_fn(model, tcfg, b, tpack, w, step,
+                               towers={"vgg": vgg, "clip": clip})
+    assert not aux_t["overflow"].any()
+    assert {"loss_perceptual", "loss_clip"} <= set(aux_j)
+    assert abs(lt.item() - float(lj)) <= 1e-4 * abs(float(lj))
+    for k, v in aux_j.items():
+        r = float(v)
+        assert abs(aux_t[k].item() - r) <= 1e-4 * abs(r) + 1e-9, (k, r)
