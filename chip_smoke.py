@@ -25,6 +25,11 @@ Phases, one JSON line each:
      zeroed): d_feat and d_stats within 5e-3 x max |g| per column on every
      32^2 case and on >= 99.9 % of the flagship's Gaussian rows, each row
      outside holding a pair whose f32 decision can flip (flip_margins);
+     on the flagship also where the gradient is consumed (param_holds:
+     K2's and the plain version's feature-row gradients pulled back
+     through the feature table and preprocess to (v2g_mb, rgb, opa) and
+     to the five inputs, >= 99.9 % of rows at each level) with the tie
+     census of the clamps of num and AA (tie_census);
      and autograd of a render loss to the five inputs and means2d_stats,
      kernel path against backend="torch", on the 32^2 cases;
      given_mask_vs_plain: on the flagship, the compositing and backward
@@ -58,7 +63,8 @@ Phases, one JSON line each:
      split into NVS_BANDS bands of its 16 tile rows, each rendered through
      the kernels with its row_off (rasterize.prepare(tile_rows=...)) and
      held against the plain band (compare_mask, the anchor, held_bwd on
-     >= 95 % of rows, as the full frame is), the stacked bands against the
+     >= NVS_ROWS of rows, as the full frame is, and param_holds on >= 99.9
+     % with the tie census, frame and bands), the stacked bands against the
      full frame's kernel render (channels 0-5, 7, 8 at 1e-4, the depth at
      5e-3) and the summed
      band gradients against the full frame's (>= 99.9 % of rows); each
@@ -97,14 +103,19 @@ Phases, one JSON line each:
      and K2 each launch 3 times per image per applied step, the decision
      pass once for each of them; per-step forward / backward / optimizer
      seconds and peak allocated memory; then a torch.profiler trace of one
-     more step;
+     more step; train_grads_vs_plain: the predictor's gradients of the
+     step's objective on GRAD_BATCH images from one forward, through K2
+     twice and through the plain compositing backward once, each
+     parameter tensor >= 99.9 % of elements within max(5e-3 x max|g|,
+     2 x K2's own spread);
   8. kernel_timing_bwd: K2 at the training step's two shapes (canonical
      render, P = 65,536; cycle render, P = 131,072) of image 0, whole and
      each pass alone (decide_ms, backward_ms), beside the plain backward
      and the bound, and whether two launches agree bit for bit; K2 held
      against the plain backward there and, at another cotangent seed, on
      image 1's two renders: >= 99.7 % of rows within 5e-3 x max |g|, each
-     row outside holding a pair that can flip; the decision pass's mask on
+     row outside holding a pair that can flip, and param_holds on >= 99.7
+     % with the tie census; the decision pass's mask on
      all four renders, each differing bit a pair that can flip; and
      compare_given_mask on all four;
   9. sharded_path: parallel/ on a world-size-1 NCCL group
@@ -134,9 +145,11 @@ Phases, one JSON line each:
      stage's seconds, the step split by CUDA events, KNN at 100,000
      points, the alive count per densification and the caps the fitted
      scene needs; then K1, K2 and the decision pass at the fitted scene
-     and the first training camera against their plain versions (the
-     anchor; K2 on >= 99.7 % of rows with d_stats, each row outside
-     witnessed) and timed beside their bounds; LPIPS through a seeded
+     and the first training camera against their plain versions run in
+     f64 (versus_f64: K1 the anchor; K2 on >= 99.7 % of rows with d_stats,
+     and pulled back to (v2g_mb, rgb, opa) on >= 99.7 %, to the five
+     inputs on >= 99.7 % or no farther from f64 than the plain f32
+     version) and timed beside their bounds; LPIPS through a seeded
      torchvision-keyed vgg16 .pt (full_eval's lpips_weights; a finite
      test_lpips is required, its value means nothing); scene_step_trace:
      utils.profiling.trace around 10 steps at the fitted scene (kernels
@@ -156,6 +169,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -184,11 +198,13 @@ FLAGSHIP_ROWS = 0.999
 TRAIN_ROWS = 0.997
 # ... and the NVS render of the EDM-init predictor's merged Gaussians: the
 # canonical input's Gaussians sit on the pixel rays, where num =
-# |b x Md|^2 is 0 up to rounding, so on an H100 89,639 of the 568,168
-# walked rows held a pair whose clamp of num can flip and the full frame
-# had 96.80 % of its rows within GRAD_TOL, each row outside witnessed
-# (PERF.md)
-NVS_ROWS = 0.95
+# |b x Md|^2 is 0 up to rounding.  With the clamp's tie halved in both
+# versions the frame had 98.72 % of its rows within GRAD_TOL on an H100
+# (96.80 % before), its bands 99.54-99.72 %; of the 7,558 rows outside,
+# 5,167 hold a contributor whose num the two versions put on different
+# sides of 0 (PERF.md).  Where the gradient is consumed (param_holds) the
+# frame holds FLAGSHIP_ROWS.
+NVS_ROWS = 0.98
 FLIP_KINDS = ("alpha", "t", "num")   # the decisions flip_margins witnesses
 # and the pairs whose alpha or normal f32 evaluation is uncertain by at
 # least GRAD_TOL of its value (pair_margins' fourth row)
@@ -249,6 +265,16 @@ SHARDED_STEPS = 2
 SHARDED_LOSS_RTOL = (1e-5, 1e-3)
 SHARDED_PARAM_RTOL = 5e-2
 TRAIN_STEPS = 5            # applied steps (tests/test_feedforward.py:64-95)
+# the training step's predictor gradients through K2 against those through
+# the plain compositing backward: images, and the share of each parameter
+# tensor's elements that must agree
+GRAD_BATCH = 2
+GRAD_BATCH_WHY = (
+    "2 images: the renders and loss terms of two images share the batch "
+    "means, and the plain backward takes ~0.4 s for each of the 3 renders "
+    "per image; the gradient is a sum over images, so more hold no new "
+    "path")
+STEP_GRAD_SHARE = 0.999
 GRAD_NAMES = ("means", "scales", "quats", "opacities", "shs", "means2d_stats")
 
 
@@ -733,12 +759,217 @@ def grad_agreement(kernel, plain):
             "rows_within_tol": float(ok.float().mean())}, ~ok
 
 
-def held_bwd(inp, args, kernel, plain, min_rows, kinds=FLIP_KINDS):
+class Render(NamedTuple):
+    """One render's five Gaussian inputs (means3d, scales, quats,
+    opacities, shs) and prep(*five, tile_rows=None), its
+    rasterize.prepare: enough to remake its feature table differentiably."""
+    params: list
+    prep: Callable
+
+    def inp(self, tile_rows=None):
+        return self.prep(*self.params, tile_rows=tile_rows)
+
+
+def pulled_back(render, tile_rows, feat, d_feats):
+    """Feature-row gradients d_feats (each (P, NFEAT)) pulled back through
+    cuda_raster._all_features and prepare's preprocess: for each, ([d
+    v2g_mb, d rgb, d opa], [d of the five inputs]) as (P, k) tensors.  The
+    feature table is remade from leaves of render.params and must equal
+    `feat`, the one the gradients are of.  The pull-back is in f32 (prepare
+    computes in f32): an f64 gradient is rounded to f32 first."""
+    import torch
+    from f3d_gaus_torch.ops import cuda_raster
+
+    leaves = [p.detach().clone().requires_grad_() for p in render.params]
+    with torch.enable_grad():
+        inp = render.prep(*leaves, tile_rows=tile_rows)
+        mids = (inp.pre.v2g_mb, inp.rgb, inp.opa)
+        remade = cuda_raster._all_features(*mids)
+    require(torch.equal(remade.detach(), feat), "the remade feature table "
+            "differs from the one K2 ran on")
+    out = []
+    for d in d_feats:
+        gs = torch.autograd.grad(remade, [*mids, *leaves], d.float(),
+                                 retain_graph=True, allow_unused=True)
+        gs = [torch.zeros_like(x) if g is None else g.reshape(g.shape[0], -1)
+              for g, x in zip(gs, [*mids, *leaves])]
+        out.append((gs[:3], gs[3:]))
+    return out
+
+
+def param_holds(render, tile_rows, feat, kernel, plain, min_rows):
+    """K2's feature-row gradient `kernel` and the compared one `plain`
+    ((d_feat, d_stats) each) pulled back (pulled_back) to (v2g_mb, rgb,
+    opa), `features_in`, and to the five Gaussian inputs, `params`; each
+    level held by grad_agreement to >= min_rows of its rows within
+    GRAD_TOL x max|g| per column.  No witness is asked of the rows
+    outside: where num = |b x Md|^2 is 0 up to rounding, its gradient
+    there is 0 to first order (num is a square), so the clamp's choice
+    cancels at these levels."""
+    (k_in, k_par), (p_in, p_par) = pulled_back(render, tile_rows, feat,
+                                               (kernel[0], plain[0]))
+    res = {}
+    for level, k, p in (("features_in", k_in, p_in),
+                        ("params", k_par, p_par)):
+        r, bad = grad_agreement(k, p)
+        res[level] = {**r, "rows_outside_tol": int(bad.sum())}
+        require(r["rows_within_tol"] >= min_rows, {level: res[level]})
+    return res
+
+
+def f64_param_holds(render, inp, args, kernel, plain, exact):
+    """At the fitted per-scene render: K2's gradient `kernel`, the plain
+    f32 version's `plain` and the plain version's in f64 `exact` ((d_feat,
+    d_stats) each), all pulled back through the same f32 preprocess
+    (pulled_back), compared at (v2g_mb, rgb, opa) and at the five inputs:
+    kernel_vs_f64, plain_vs_f64 and kernel_vs_plain (grad_agreement),
+    with the columns and the smallest scales of the rows outside; and the
+    render's tie census."""
+    import torch
+
+    pulled = pulled_back(render, None, args[0],
+                         (kernel[0], plain[0], exact[0]))
+    scale_min = render.params[1].detach().amin(1)
+    res = {}
+    for level in (0, 1):
+        name = ("features_in", "params")[level]
+        res[name] = {}
+        for pair, a, b in (("kernel_vs_f64", 0, 2), ("plain_vs_f64", 1, 2),
+                           ("kernel_vs_plain", 0, 1)):
+            r, bad = grad_agreement(pulled[a][level], pulled[b][level])
+            k, p = torch.cat(pulled[a][level], 1), torch.cat(pulled[b][level], 1)
+            col_bad = ((k - p).abs() > GRAD_TOL * p.abs().amax(0, keepdim=True))
+            res[name][pair] = {
+                **r, "rows_outside_tol": int(bad.sum()),
+                "columns_outside_tol": col_bad.sum(0).tolist(),
+                "outside_scale_min_quantiles": (torch.quantile(
+                    scale_min[bad].float(), torch.tensor(
+                        [0.0, 0.5, 1.0], device=bad.device)).tolist()
+                    if bool(bad.any()) else None)}
+    res["scale_min_quantiles"] = torch.quantile(
+        scale_min.float(), torch.tensor([0.0, 0.01, 0.5],
+                                        device=scale_min.device)).tolist()
+    res["tie_census"] = tie_census(inp, args[6])[0]
+    return res
+
+
+def fma32(a, b, c):
+    """f32 fma(a, b, c) with one rounding, through f64: a * b is exact
+    there, and rounding the sum to f64 and then to f32 differs from one
+    rounding only where the f64 sum lands on an f32 midpoint (about 2^-29
+    of the cases)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def kernel_forms(f, U, V):
+    """AA and num as gof_pair.cuh:quad_aa and quad_num evaluate them (their
+    FMA pattern mirrored by fma32; each other operation one f32 rounding,
+    as PyTorch's): f (T, 1, C, NFEAT) window rows, U and V (T, PIX, 1)."""
+    from f3d_gaus_torch.ops import rasterize as R
+
+    qa = [f[..., R.ROW_QA + i] for i in range(6)]
+    qk = [f[..., R.ROW_QK + i] for i in range(6)]
+    a = fma32(qa[1], V, qa[0] * U) + qa[3]
+    b = (qa[2] * V + qa[4]) * V
+    AA = fma32(a, U, b) + qa[5]
+    a = fma32(qk[0], U, qk[1] * V) + qk[3]
+    b = fma32(qk[2], V, qk[4]) * V
+    return AA, fma32(a, U, b) + qk[5]
+
+
+def tie_census(inp, aux):
+    """The clamps' ties on the pairs K2 walks (window position <= the
+    pixel's last contributor, from K1's `aux`) and on its contributors
+    (those with the decision pass's bit set): how many have num =
+    |b x Md|^2 exactly 0 and below 0, and AA = |Md|^2 exactly 1e-12 and
+    below it, in the plain f32 evaluation (rasterize._chunk_eval's
+    roundings), in the kernel's (kernel_forms) and in both; and the
+    contributors whose num the two put on different sides of 0 (sign -, 0
+    or + differs: the clamp's share differs there).  Returns the counts
+    and the (P,) mask of the Gaussians holding such a contributor."""
+    import collections
+    import numpy as np
+    import torch
+    from f3d_gaus_torch.ops import cuda_raster
+    from f3d_gaus_torch.ops import rasterize as R
+
+    s, b = inp.statics, inp.binning
+    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
+    P, dev, C = feat.shape[0], feat.device, s.chunk
+    mask = cuda_raster.decide(feat, b.point_list, b.tile_start, b.tile_count,
+                              s)
+    gids, valid, wfeat, n = R._windows(feat, b.point_list, b.tile_start,
+                                       b.tile_count, s)
+    gids = torch.where(valid, gids, P)
+    u, v = R._tile_rays(s, dev)
+    U, V = u[..., None], v[..., None]
+    aa_lo = float(np.float32(1e-12))
+    last = aux.last_pos[..., None].long()
+    counts = collections.Counter()
+    split = torch.zeros(P + 1, dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        for ci in range(n):
+            sl = slice(ci * C, (ci + 1) * C)
+            pos = torch.arange(ci * C, (ci + 1) * C, device=dev)
+            walked = valid[:, None, sl] & (pos <= last)
+            if not bool(walked.any()):
+                continue
+            contrib = walked & R._unpack_window_bits(mask, b.tile_start,
+                                                     ci * C, C)
+            f = wfeat[:, sl][:, None]
+            plain = (quad([f[..., R.ROW_QA + i] for i in range(6)], U, V),
+                     quad([f[..., R.ROW_QK + i] for i in range(6)], U, V))
+            kern = kernel_forms(f, U, V)
+            for where, m in (("walked", walked), ("contrib", contrib)):
+                counts[f"{where}/pairs"] += int(m.sum())
+                for form, p_, k_, lo in (("AA", plain[0], kern[0], aa_lo),
+                                         ("num", plain[1], kern[1], 0.0)):
+                    for rel, op in (("tie", torch.eq), ("below", torch.lt)):
+                        pm, km = m & op(p_, lo), m & op(k_, lo)
+                        key = f"{where}/{form}_{rel}"
+                        counts[key + "/plain"] += int(pm.sum())
+                        counts[key + "/kernel"] += int(km.sum())
+                        counts[key + "/both"] += int((pm & km).sum())
+            sign_split = contrib & (torch.sign(plain[1]) != torch.sign(kern[1]))
+            counts["contrib/num_sign_split"] += int(sign_split.sum())
+            split[gids[:, sl][sign_split.any(1)]] = True
+    res = {}
+    for key, x in sorted(counts.items()):
+        node = res
+        *path, leaf = key.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = x
+    split = split[:P]
+    res["rows_with_num_sign_split"] = int(split.sum())
+    return res, split
+
+
+def held_bwd_at_params(render, tile_rows, inp, args, kernel, plain,
+                       min_rows, param_rows):
+    """held_bwd at min_rows, with the rows outside that hold a pair split
+    across 0 counted (tie_census), and, under "at_params", param_holds at
+    param_rows and the census (args: K2's arguments, K1's aux at 6)."""
+    census, split = tie_census(inp, args[6])
+    res = held_bwd(inp, args, kernel, plain, min_rows, split=split)
+    res["at_params"] = {**param_holds(render, tile_rows, args[0], kernel,
+                                      plain, param_rows),
+                        "tie_census": census}
+    return res
+
+
+def held_bwd(inp, args, kernel, plain, min_rows, kinds=FLIP_KINDS,
+             split=None):
     """grad_agreement, required: at least `min_rows` of the rows within
     GRAD_TOL and, where that is below 1, each row outside holding a pair
     whose decision of one of `kinds` (of FLIP_KINDS) can flip
-    (flip_margins; the counts of MARGIN_KINDS are reported)."""
+    (flip_margins; the counts of MARGIN_KINDS are reported).  With `split`
+    (tie_census's mask), the rows outside that hold a contributor whose
+    num the kernel and the plain version put on different sides of 0 are
+    counted."""
     res, bad = grad_agreement(kernel, plain)
+    if split is not None:
+        res["rows_outside_tol_num_sign_split"] = int((bad & split).sum())
     if min_rows < 1.0:
         by_kind, walked = flip_margins(inp, args[6])
         can_flip = by_kind <= 1.0
@@ -758,8 +989,10 @@ def held_bwd(inp, args, kernel, plain, min_rows, kinds=FLIP_KINDS):
     return res
 
 
-def compare_bwd(inp, seed, min_rows=1.0):
-    """K2 against the plain backward on one prepared input (held_bwd)."""
+def compare_bwd(inp, seed, min_rows=1.0, render=None):
+    """K2 against the plain backward on one prepared input (held_bwd) and,
+    given its Render, where the gradient is consumed (held_bwd_at_params,
+    at min_rows)."""
     import torch
     from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.ops import rasterize as R
@@ -769,7 +1002,10 @@ def compare_bwd(inp, seed, min_rows=1.0):
     k = cuda_raster.composite_bwd(*args)
     p = R._composite_bwd_impl(*args)
     torch.cuda.synchronize()
-    return held_bwd(inp, args, k, p, min_rows)
+    if render is None:
+        return held_bwd(inp, args, k, p, min_rows)
+    return held_bwd_at_params(render, None, inp, args, k, p, min_rows,
+                              min_rows)
 
 
 def compare_given_mask(inp, seed, min_rows):
@@ -811,7 +1047,7 @@ def compare_given_mask(inp, seed, min_rows):
                                         kinds=("num",))}
 
 
-def versus_f64(inp, seed, g=None):
+def versus_f64(inp, seed, g=None, render=None):
     """K1 and K2 against their plain versions where thin Gaussians make the
     monomial form's f32 evaluation ill-conditioned (the fitted per-scene
     scene: both f32 evaluations differ from the f64 one by up to a few
@@ -823,7 +1059,15 @@ def versus_f64(inp, seed, g=None):
     K2 must hold >= TRAIN_ROWS of its rows within GRAD_TOL x max|g| of it;
     no witness is required of the rows outside, as the backward's own
     divisions by T are ill-conditioned where pixels turn opaque: how many
-    of them hold a pair of each MARGIN_KINDS is reported.
+    of them hold a pair of each MARGIN_KINDS is reported.  Where the
+    gradient is consumed (f64_param_holds, given the input's Render): at
+    (v2g_mb, rgb, opa) K2 must hold >= TRAIN_ROWS of rows against f64; at
+    the five inputs it must too, or be no farther from f64 than the plain
+    f32 version is: its rows outside at most the plain version's plus 3
+    times their square root (their count's spread).  The pull-back to
+    scales and rotations multiplies a thin Gaussian's (M, b) gradient by
+    about 1 / its smallest scale, so both f32 versions miss the f64 one
+    on the thinnest rows (PERF.md).
     The plain f32 version's figures against f64 and the direct
     kernel-vs-plain errors (the anchor, and held_bwd's rows and witnesses)
     are reported.  With `g`, an out9 cotangent for this input in place of
@@ -884,6 +1128,14 @@ def versus_f64(inp, seed, g=None):
         bwd[name] = res
     require(not held or bwd["kernel_vs_f64"]["rows_within_tol"] >= TRAIN_ROWS,
             bwd["kernel_vs_f64"])
+    if render is not None:
+        bwd["at_params"] = at = f64_param_holds(render, inp, args, kb, pb, qb)
+        fin, par = at["features_in"], at["params"]
+        require(fin["kernel_vs_f64"]["rows_within_tol"] >= TRAIN_ROWS, fin)
+        k_out = par["kernel_vs_f64"]["rows_outside_tol"]
+        p_out = par["plain_vs_f64"]["rows_outside_tol"]
+        require(par["kernel_vs_f64"]["rows_within_tol"] >= TRAIN_ROWS
+                or k_out <= p_out + 3 * p_out ** 0.5, par)
     return {"fwd": fwd, "bwd": bwd, **({} if held else {"grads": (kb, qb)})}
 
 
@@ -916,12 +1168,14 @@ def compare_chain(cam, cloud, bg, kw, dev, seed):
     return res
 
 
-def time_kernel_bwd(inp, iters, seed, held=True):
+def time_kernel_bwd(inp, iters, seed, held=True, render=None):
     """K2's times on one prepared input, whole and each pass alone, the
     plain backward's, the bounds, the agreement (of the gradients, held
     by held_bwd and compare_given_mask unless `held` is False, where
     versus_f64 holds them, and of the decision mask) and whether two
-    launches agree bit for bit."""
+    launches agree bit for bit.  Given the input's Render (and `held`),
+    the gradients are also held where they are consumed
+    (held_bwd_at_params)."""
     import torch
     from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.ops import rasterize as R
@@ -942,7 +1196,10 @@ def time_kernel_bwd(inp, iters, seed, held=True):
                        warmup=0)
     agree = {}
     if held:
-        agree = held_bwd(inp, args, k1, plain[0], TRAIN_ROWS)
+        agree = (held_bwd(inp, args, k1, plain[0], TRAIN_ROWS)
+                 if render is None else held_bwd_at_params(
+                     render, None, inp, args, k1, plain[0], TRAIN_ROWS,
+                     TRAIN_ROWS))
         agree["given_mask"] = compare_given_mask(inp, seed, TRAIN_ROWS)
     agree["mask"] = compare_mask(inp, exact=False)
 
@@ -980,19 +1237,26 @@ def time_kernel_bwd(inp, iters, seed, held=True):
                 **agree)
 
 
-def prepared(g, cam, cfg, b=0, tile_rows=None):
-    """rasterize.prepare of element b of a Gaussian dict at cfg's caps
-    (of the band tile_rows, when given)."""
+def gauss_render(g, cam, cfg, b=0):
+    """The Render of element b of a Gaussian dict at cfg's caps."""
     import torch
     from f3d_gaus_torch.ops import rasterize as R
 
     shs = torch.cat([g["features_dc"][b], g["features_rest"][b]], 1)
-    return R.prepare(g["xyz"][b], g["scaling"][b], g["rotation"][b],
-                     g["opacity"][b], shs, cam,
-                     torch.zeros(3, device=shs.device),
-                     sh_degree=cfg.max_sh_degree, kernel_size=cfg.kernel_size,
-                     pair_cap=cfg.pair_cap, max_per_tile=cfg.max_per_tile,
-                     chunk=cfg.chunk, tile_rows=tile_rows)
+    bg = torch.zeros(3, device=shs.device)
+    return Render(
+        [g["xyz"][b], g["scaling"][b], g["rotation"][b], g["opacity"][b], shs],
+        lambda *five, tile_rows=None: R.prepare(
+            *five, cam, bg, sh_degree=cfg.max_sh_degree,
+            kernel_size=cfg.kernel_size, pair_cap=cfg.pair_cap,
+            max_per_tile=cfg.max_per_tile, chunk=cfg.chunk,
+            tile_rows=tile_rows))
+
+
+def prepared(g, cam, cfg, b=0, tile_rows=None):
+    """rasterize.prepare of element b of a Gaussian dict at cfg's caps
+    (of the band tile_rows, when given)."""
+    return gauss_render(g, cam, cfg, b).inp(tile_rows)
 
 
 def counted(fn, k1=0, k2=0, decide=0):
@@ -1013,10 +1277,11 @@ def counted(fn, k1=0, k2=0, decide=0):
     return out
 
 
-def band_vs_plain(case, make, n_bands, seed, per_scene=False,
+def band_vs_plain(case, render, n_bands, seed, per_scene=False,
                   min_rows=NVS_ROWS):
     """The frame split into n_bands bands of its tile rows, each rendered
-    through the kernels with its row_off (make(tile_rows) prepares it).
+    through the kernels with its row_off (render.inp(tile_rows) prepares
+    it).
     Each band is held against the plain band render by the full frame's
     rules: the decision mask by compare_mask (each differing bit a pair
     that can flip); K1 by the anchor and K2 by held_bwd (>= min_rows of
@@ -1035,12 +1300,15 @@ def band_vs_plain(case, make, n_bands, seed, per_scene=False,
     bands, against the full frame's (GRAD_TOL x max|g| on >= FLAGSHIP_ROWS
     of rows).  Each band's counted forward launches the decision pass and
     K1 once, its counted backward the decision pass and K2 once.  Times
-    each band's K1 and K2 and the full frame's with CUDA events."""
+    each band's K1 and K2 and the full frame's with CUDA events.  Outside
+    the per-scene scene, the frame's and each band's K2 gradient is also
+    held where it is consumed (held_bwd_at_params, >= FLAGSHIP_ROWS of
+    rows) with its tie census."""
     import torch
     from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.ops import rasterize as R
 
-    full = make(None)
+    full = render.inp()
     fs = full.statics
     require(fs.grid_y % n_bands == 0, f"{fs.grid_y} rows in {n_bands} bands")
     rows = fs.grid_y // n_bands
@@ -1055,12 +1323,13 @@ def band_vs_plain(case, make, n_bands, seed, per_scene=False,
     full_bwd = None
     if not per_scene:
         args = (feat, extra, *slab, aux_f, g_full, fs)
-        full_bwd = held_bwd(full, args, grad_f, R._composite_bwd_impl(*args),
-                            min_rows)
+        full_bwd = held_bwd_at_params(
+            render, None, full, args, grad_f, R._composite_bwd_impl(*args),
+            min_rows, FLAGSHIP_ROWS)
     del full
     outs, sums, sums64, bands = [], None, None, []
     for d in range(n_bands):
-        inp = make((d * rows, rows))
+        inp = render.inp((d * rows, rows))
         s, b = inp.statics, inp.binning
         require(s.row_off == d * rows and s.grid_y == rows
                 and s.height == fs.height and not bool(b.overflow),
@@ -1086,9 +1355,10 @@ def band_vs_plain(case, make, n_bands, seed, per_scene=False,
             require(res["fwd_vs_f64"]["unwitnessed"] == 0, res)
         else:
             res["fwd"] = compare(inp, exact=False)
-            pb = R._composite_bwd_impl(bf, bx, *bslab, a, gb, s)
-            res["bwd"] = held_bwd(inp, (bf, bx, *bslab, a, gb, s), kb, pb,
-                                  min_rows)
+            bargs = (bf, bx, *bslab, a, gb, s)
+            res["bwd"] = held_bwd_at_params(
+                render, (d * rows, rows), inp, bargs, kb,
+                R._composite_bwd_impl(*bargs), min_rows, FLAGSHIP_ROWS)
         res["k1_ms"] = time_ms(lambda: cuda_raster.composite_fwd(
             bf, *bslab, s), TIMED_LAUNCHES)
         res["k2_ms"] = time_ms(lambda: cuda_raster.composite_bwd(
@@ -1267,7 +1537,9 @@ def kernels_vs_plain(dev, seed):
     cam, cloud = torch_cases.bench_scene(np.random.default_rng(seed))
     tc = cloud_to(cloud, dev)
     caps = R.plan_caps(*tc[:4], cam)
-    inp = R.prepare(*tc, cam, **caps)
+    render = Render(tc, lambda *five, tile_rows=None: R.prepare(
+        *five, cam, **caps))
+    inp = render.inp()
     require(not bool(inp.binning.overflow), "flagship caps overflow")
     masks.append(compare_mask(inp, exact=False))
     emit("decide_vs_plain", case="flagship_256_65536", caps=caps,
@@ -1275,10 +1547,12 @@ def kernels_vs_plain(dev, seed):
     emit("kernel_vs_plain", case="flagship_256_65536", caps=caps,
          tol="anchor: channels 0-5,7,8 max < 2e-2, <= 0.1% above 1e-3",
          **compare(inp, exact=False))
-    flag = compare_bwd(inp, seed, FLAGSHIP_ROWS)
+    flag = compare_bwd(inp, seed, FLAGSHIP_ROWS, render)
     emit("kernel_vs_plain_bwd", case="flagship_256_65536", caps=caps,
          tol=f"{GRAD_TOL} x max|g| per column on >= {FLAGSHIP_ROWS} of rows, "
-             "each row outside with a pair that can flip", **flag)
+             "each row outside with a pair that can flip; at_params: the "
+             "same on the gradients pulled back to (v2g_mb, rgb, opa) and "
+             f"to the five inputs, >= {FLAGSHIP_ROWS} of rows", **flag)
     given = [compare_given_mask(inp, seed, FLAGSHIP_ROWS)]
     emit("given_mask_vs_plain", case="flagship_256_65536",
          tol=GIVEN_MASK_TOL_TEXT, **given[-1])
@@ -1370,8 +1644,8 @@ def serving_path(args, dev, card):
          **render_breakdown(res.merged, nvs_cam, fcfg))
     emit("nvs_render_profile", card=card,
          **profile_render(res.merged, nvs_cam, fcfg))
-    bands = band_vs_plain("nvs", lambda tr: prepared(
-        res.merged, nvs_cam, fcfg, tile_rows=tr), NVS_BANDS, args.seed)
+    bands = band_vs_plain("nvs", gauss_render(res.merged, nvs_cam, fcfg),
+                          NVS_BANDS, args.seed)
     emit("band_vs_plain", card=card, tol=BAND_TOL_TEXT.format(
         held=f"K1 the anchor, K2 held_bwd on >= {NVS_ROWS} of rows (the "
              "full frame too)"), **bands)
@@ -1414,6 +1688,67 @@ def tower_ms(towers, weights, target, iters=5):
                                                       target)),
             "clip_ms": run(lambda: weights.w_clip * CL.clip_loss(
                 towers["clip"], x.clamp(0.0, 1.0), target))}
+
+
+def step_grads_vs_plain(state, cfg, batch, pack, weights, towers):
+    """The predictor's parameter gradients of feedforward.loss_fn (the
+    training step's objective, towers included) on GRAD_BATCH images of
+    `batch`, from one forward through K1: backward twice through K2 (its
+    own spread: the atomics' order) and once through the plain compositing
+    backward (rasterize._composite_bwd_impl in place of
+    cuda_raster.composite_bwd; launches counted: 3 K2 and decision passes
+    per image, then none).  Each parameter tensor must hold
+    >= STEP_GRAD_SHARE of its elements within max(GRAD_TOL x its largest
+    plain |g|, 2 x the two K2 runs' difference there)."""
+    import torch
+    from f3d_gaus_torch.ops import cuda_raster
+    from f3d_gaus_torch.ops import rasterize as R
+    from f3d_gaus_torch.train import feedforward as F
+
+    B = GRAD_BATCH
+    part = {k: v[:B] for k, v in batch.items()}
+    names, params = zip(*[(n, p) for n, p in state.model.named_parameters()
+                          if p.requires_grad])
+    loss, aux = F.loss_fn(state.model, cfg, part, pack, weights, state.step,
+                          F.Curriculum(), towers)
+    require(not bool(aux["overflow"].any()), "overflow in the gradient step")
+
+    def grads():
+        return torch.autograd.grad(loss, params, retain_graph=True,
+                                   allow_unused=True)
+    k2 = [counted(grads, k2=3 * B, decide=3 * B) for _ in range(2)]
+    kernel_bwd = cuda_raster.composite_bwd
+    cuda_raster.composite_bwd = R._composite_bwd_impl
+    try:
+        t0 = time.perf_counter()
+        plain = counted(grads)
+        plain_s = time.perf_counter() - t0
+    finally:
+        cuda_raster.composite_bwd = kernel_bwd
+    per = {}
+    for name, a, b, p in zip(names, *k2, plain):
+        if p is None:
+            continue
+        require(bool(torch.isfinite(a).all()), f"finite d/d{name}")
+        spread = (a - b).abs()
+        tol = torch.clamp_min(2.0 * spread, GRAD_TOL * float(p.abs().max()))
+        per[name] = {"share": float(((a - p).abs() <= tol).float().mean()),
+                     "max_abs_err": float((a - p).abs().max()),
+                     "max_abs_grad": float(p.abs().max()),
+                     "k2_spread": float(spread.max())}
+    worst = min(per, key=lambda n: per[n]["share"])
+    res = {"batch": B, "loss": loss.item(), "tensors": len(per),
+           "worst_tensor": {"name": worst, **per[worst]},
+           "elements_within_tol": sum(
+               x["share"] * params[names.index(n)].numel()
+               for n, x in per.items()) / sum(
+               params[names.index(n)].numel() for n in per),
+           "k2_spread_max_rel": max(x["k2_spread"] / max(x["max_abs_grad"],
+                                                        1e-30)
+                                    for x in per.values()),
+           "plain_backward_s": plain_s}
+    require(per[worst]["share"] >= STEP_GRAD_SHARE, res)
+    return res
 
 
 def training_path(args, dev, card):
@@ -1513,6 +1848,13 @@ def training_path(args, dev, card):
     emit("train_step_profile", card=card, batch=B, **device_profile(
         lambda: F.train_step(state, cfg, batch, pack, weights,
                              towers=towers), top=15))
+    torch.cuda.empty_cache()
+    emit("train_grads_vs_plain", card=card, config="PipelineConfig()",
+         batch_why=GRAD_BATCH_WHY,
+         tol=f">= {STEP_GRAD_SHARE} of each parameter tensor's elements "
+             f"within max({GRAD_TOL} x max|g|, 2 x K2's own spread)",
+         **step_grads_vs_plain(state, cfg, batch, pack, weights, towers))
+    torch.cuda.empty_cache()
     del towers
 
     # K2 at the step's two shapes: the canonical and cycle renders of
@@ -1538,18 +1880,24 @@ def training_path(args, dev, card):
     timed, other = renders_of(0), renders_of(1)
     del state, p0
     torch.cuda.empty_cache()
-    shapes = {k: time_kernel_bwd(prepared(g, cam, cfg), TIMED_LAUNCHES,
-                                 args.seed) for k, g in timed.items()}
+    shapes = {}
+    for k, g in timed.items():
+        r = gauss_render(g, cam, cfg)
+        shapes[k] = time_kernel_bwd(r.inp(), TIMED_LAUNCHES, args.seed,
+                                    render=r)
     for k, v in shapes.items():
         emit("kernel_timing_bwd", card=card, shape=k, **v)
     masks = [v["mask"] for v in shapes.values()]
     given = [v["given_mask"] for v in shapes.values()]
     for k, g in other.items():
-        inp = prepared(g, cam, cfg)
+        r = gauss_render(g, cam, cfg)
+        inp = r.inp()
         emit("kernel_vs_plain_bwd", case=f"train_{k}_image1",
              tol=f"{GRAD_TOL} x max|g| per column on >= {TRAIN_ROWS} of "
-                 "rows, each row outside with a pair that can flip",
-             **compare_bwd(inp, args.seed + 1, TRAIN_ROWS))
+                 "rows, each row outside with a pair that can flip; "
+                 "at_params: the same on the gradients pulled back to "
+                 f"(v2g_mb, rgb, opa) and to the five inputs, >= {TRAIN_ROWS} "
+                 "of rows", **compare_bwd(inp, args.seed + 1, TRAIN_ROWS, r))
         masks.append(compare_mask(inp, exact=False))
         emit("decide_vs_plain", case=f"train_{k}_image1",
              tol="each differing bit a pair that can flip", **masks[-1])
@@ -2412,20 +2760,21 @@ def write_scene(root, rng, dev):
                 alpha_mean)), "write_s": time.perf_counter() - t0}
 
 
-def scene_kernel_inputs(scene, cam, cfg, tile_rows=None):
-    """rasterize.prepare of the trained scene at one camera (its band
-    tile_rows, when given), as the test renders take it (SH degree
-    cfg.sh_degree, dead rows culled)."""
+def scene_render(scene, cam, cfg):
+    """The Render of the trained scene at one camera, as the test renders
+    take it (SH degree cfg.sh_degree, dead rows culled)."""
     import torch
     from f3d_gaus_torch.ops import rasterize as R
     from f3d_gaus_torch.train import per_scene as PS
 
     g = PS.activated(scene)
-    return R.prepare(g["xyz"], g["scaling"], g["rotation"], g["opacity"],
-                     g["shs"], cam, torch.zeros(3, device=scene.xyz.device),
-                     sh_degree=cfg.sh_degree, pair_cap=cfg.pair_cap,
-                     max_per_tile=cfg.max_per_tile, chunk=cfg.chunk,
-                     mask=scene.alive, tile_rows=tile_rows)
+    bg = torch.zeros(3, device=scene.xyz.device)
+    return Render(
+        [g["xyz"], g["scaling"], g["rotation"], g["opacity"], g["shs"]],
+        lambda *five, tile_rows=None: R.prepare(
+            *five, cam, bg, sh_degree=cfg.sh_degree, pair_cap=cfg.pair_cap,
+            max_per_tile=cfg.max_per_tile, chunk=cfg.chunk, mask=scene.alive,
+            tile_rows=tile_rows))
 
 
 def step_trace(step, logdir, n_steps=SCENE_TIMED_STEPS):
@@ -2660,16 +3009,20 @@ def scene_path(args, dev, card):
             f"test PSNR {summary['test_psnr']} <= init {init_m['psnr']}")
 
     # K1, K2 and the decision pass at the fitted scene, first training view
-    inp = scene_kernel_inputs(scene, train_cams[0].camera, cfg)
+    render = scene_render(scene, train_cams[0].camera, cfg)
+    inp = render.inp()
     require(not bool(inp.binning.overflow), "fitted scene's caps overflow")
     torch.cuda.empty_cache()
-    vs = versus_f64(inp, args.seed + 2)
+    vs = versus_f64(inp, args.seed + 2, render=render)
     emit("kernel_vs_f64", case=f"per_scene_{SCENE_RES}", caps=caps,
          tol=f"given the decision mask, against the plain version in f64: "
              f"K1 <= {ANCHOR_SHARE} of values above {ANCHOR_ABOVE}, each "
              f"value above {ANCHOR_MAX_ERR} within its pixel's f32 error "
              f"bound (alpha_error_bound); K2 {GRAD_TOL} x max|g| per column "
-             f"on >= {TRAIN_ROWS} of rows", **vs)
+             f"on >= {TRAIN_ROWS} of rows; at_params: pulled back to "
+             f"(v2g_mb, rgb, opa) >= {TRAIN_ROWS} of rows against f64, to "
+             f"the five inputs >= {TRAIN_ROWS} or no more rows outside than "
+             "the plain f32 version's plus 3 sqrt of them", **vs)
     fwd = time_kernel(inp, TIMED_LAUNCHES, 1, held=False)
     fwd.update(vs["fwd"]["kernel_vs_plain"])
     emit("kernel_timing", card=card, shape="per_scene", **fwd)
@@ -2678,9 +3031,8 @@ def scene_path(args, dev, card):
     emit("kernel_timing_bwd", card=card, shape="per_scene", **bwd)
     del inp
     torch.cuda.empty_cache()
-    bands = band_vs_plain("per_scene", lambda tr: scene_kernel_inputs(
-        scene, train_cams[0].camera, cfg, tr), SCENE_BANDS, args.seed + 2,
-        per_scene=True)
+    bands = band_vs_plain("per_scene", render, SCENE_BANDS, args.seed + 2,
+                          per_scene=True)
     emit("band_vs_plain", card=card, tol=BAND_TOL_TEXT.format(
         held=f"K1 and K2 by versus_f64 over the bands together (K1 the "
              f"anchor against f64, its share of values above {ANCHOR_ABOVE} "

@@ -29,6 +29,25 @@ def resolve_device(device=None, like: torch.Tensor | None = None) -> torch.devic
     return device
 
 
+# Clamps on a differentiable path follow jnp.maximum / jnp.minimum /
+# jnp.clip, which pass half the cotangent where x equals the bound;
+# torch.clamp passes all of it there.  torch.maximum / torch.minimum against
+# a 0-d tensor split it as JAX does.
+def max_tie(x: torch.Tensor, lo: float) -> torch.Tensor:
+    """max(x, lo) with jnp.maximum's gradient: 1 above, 1/2 at, 0 below."""
+    return torch.maximum(x, x.new_full((), lo))
+
+
+def min_tie(x: torch.Tensor, hi: float) -> torch.Tensor:
+    """min(x, hi) with jnp.minimum's gradient: 1 below, 1/2 at, 0 above."""
+    return torch.minimum(x, x.new_full((), hi))
+
+
+def clip_tie(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """jnp.clip(x, lo, hi): min_tie(max_tie(x, lo), hi)."""
+    return min_tie(max_tie(x, lo), hi)
+
+
 class StageClock:
     """Wall seconds per stage into `timings` (a dict), synchronising the
     card at each lap; does nothing when `timings` is None."""

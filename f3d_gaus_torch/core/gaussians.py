@@ -19,6 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .device import clip_tie, max_tie
+
 NEAR_PLANE = 0.2   # auxiliary.h:27
 FAR_PLANE = 100.0  # auxiliary.h:28
 
@@ -143,9 +145,9 @@ def cov2d_and_coef(means, cov3d6, world_view, focal_x: float, focal_y: float,
     limx, limy = 1.3 * tan_fovx, 1.3 * tan_fovy
     # z floor: Gaussians behind/at the camera are frustum-culled downstream,
     # but the vectorized path must still give them finite values
-    tz = torch.clamp_min(t[2], 1e-4)
-    tx = torch.clamp(t[0] / tz, -limx, limx) * tz
-    ty = torch.clamp(t[1] / tz, -limy, limy) * tz
+    tz = max_tie(t[2], 1e-4)
+    tx = clip_tie(t[0] / tz, -limx, limx) * tz
+    ty = clip_tie(t[1] / tz, -limy, limy) * tz
 
     j00 = _scalar_over(focal_x, tz)
     j02 = -(focal_x * tx) / (tz * tz)
@@ -170,9 +172,9 @@ def cov2d_and_coef(means, cov3d6, world_view, focal_x: float, focal_y: float,
     cxy = quad(r0, r1)
     cyy = quad(r1, r1)
 
-    det0 = torch.clamp_min(cxx * cyy - cxy * cxy, 1e-6)
-    det1 = torch.clamp_min((cxx + kernel_size) * (cyy + kernel_size)
-                           - cxy * cxy, 1e-6)
+    det0 = max_tie(cxx * cyy - cxy * cxy, 1e-6)
+    det1 = max_tie((cxx + kernel_size) * (cyy + kernel_size) - cxy * cxy,
+                   1e-6)
     coef = torch.sqrt(det0 / (det1 + 1e-6) + 1e-6)
     coef = torch.where((det0 <= 1e-6) | (det1 <= 1e-6),
                        torch.zeros_like(coef), coef)
@@ -187,7 +189,7 @@ def screen_extent(cov2d: torch.Tensor):
     det_inv = torch.where(det == 0.0, torch.zeros_like(det), 1.0 / det)
     conic = torch.stack([cyy * det_inv, -cxy * det_inv, cxx * det_inv], -1)
     mid = 0.5 * (cxx + cyy)
-    lambda1 = mid + torch.sqrt(torch.clamp_min(mid * mid - det, 0.1))
+    lambda1 = mid + torch.sqrt(max_tie(mid * mid - det, 0.1))
     radius = torch.ceil(3.0 * torch.sqrt(lambda1))
     return conic, radius, det
 

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from .device import max_tie
+
 
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     """Rotation matrix for quaternion(s) (..., 4) -> (..., 3, 3)."""
@@ -34,4 +36,4 @@ def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def quat_normalize(q: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     n = torch.linalg.norm(q, dim=-1, keepdim=True)
-    return q / (n.clamp(min=eps) if eps else n)
+    return q / (max_tie(n, eps) if eps else n)

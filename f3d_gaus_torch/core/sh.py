@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from .device import max_tie
+
 SH_C0 = 0.28209479177387814
 SH_C1 = 0.4886025119029199
 SH_C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
@@ -60,4 +62,4 @@ def sh_color_from_gaussians(deg: int, shs: torch.Tensor, means: torch.Tensor,
     norm = torch.sqrt(torch.sum(dirs * dirs, dim=-1, keepdim=True) + 1e-16)
     dirs = dirs / norm
     raw = eval_sh(deg, shs, dirs)
-    return torch.clamp_min(raw, 0.0), raw < 0
+    return max_tie(raw, 0.0), raw < 0

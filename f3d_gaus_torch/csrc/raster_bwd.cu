@@ -27,9 +27,12 @@
 //     depth gradient to the median contributor (max_pos) only, the alpha
 //     channel (7) takes none;
 //   * the pull-back through the ray quadratic to the 19 monomial rows
-//     (clamps of AA and num pass nothing where they bind, the pass-through
-//     minima at 0 and 0.99 pass everything, the normal's sqrt(.+1e-7)
-//     normalisation, the 1e-6 floor of t in m);
+//     (the clamps max(AA, 1e-12) and max(num, 0) pass the whole gradient
+//     above their bound, half at it and nothing below, as jnp.maximum
+//     does in the JAX package's _forms; num is exactly 0 often, on a
+//     Gaussian's own pixel ray; the pass-through minima at 0 and 0.99 pass
+//     everything, the normal's sqrt(.+1e-7) normalisation, the 1e-6 floor
+//     of t in m);
 //   * the stats |dL/dmean2d| through the conic, |gx| + |gy| per pixel.
 //
 // What bounds it on this card: the contributors' FP32 arithmetic (about
@@ -67,6 +70,12 @@ constexpr int kWords = kRange / 32;
 constexpr int kNExtra = 5;              // conic (3) | means2d (2)
 constexpr int kCols = kNFeat + kNExtra; // staged columns, 6 x 16 bytes
 constexpr int kNGrad = kNFeat + 3;      // feature gradients | stats
+
+// The cotangent g of max(x, lo) pulled back to x as jnp.maximum does: g
+// above the bound, g / 2 at it, 0 below (whatever g is).
+__device__ __forceinline__ float max_pullback(float x, float lo, float g) {
+  return x > lo ? g : (x == lo ? 0.5f * g : 0.0f);
+}
 
 struct Params {
   const float* allf;       // (P, kNFeat) feature table
@@ -280,9 +289,10 @@ raster_bwd_kernel(const Params p) {
           // t = -BB / (2 AA_safe), mv = num / AA_safe
           const float inv_AA = 1.0f / e.AA_safe;
           const float d_BB = -0.5f * d_t * inv_AA;
+          // through the clamps max(AA, 1e-12) and max(num, 0)
           const float d_AA =
-              e.AA > 1e-12f ? -(d_t * t + d_mv * mv) * inv_AA : 0.0f;
-          const float d_num = e.num > 0.0f ? d_mv * inv_AA : 0.0f;
+              max_pullback(e.AA, 1e-12f, -(d_t * t + d_mv * mv) * inv_AA);
+          const float d_num = max_pullback(e.num, 0.0f, d_mv * inv_AA);
 
           // nn = -n / |n|, cotangent w gL_nn
           const float dn0 = w8 * gn0, dn1 = w8 * gn1, dn2 = w8 * gn2;

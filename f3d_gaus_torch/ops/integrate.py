@@ -126,6 +126,7 @@ def _pair_alpha(rows, u, v, ray_depth):
     t_c = torch.minimum(t_peak, D)                              # the GOF clamp
     g = [t_c * a[k] + b[k] for k in range(3)]                   # g(t_c)
     val = g[0] * g[0] + g[1] * g[1] + g[2] * g[2]
+    # the field query takes no gradient, so clamp's tie share is moot
     alpha = torch.clamp_max(m[12] * torch.exp(-0.5 * val), 0.99)
     return torch.where(alpha >= ALPHA_EPS, alpha, 0.0)
 

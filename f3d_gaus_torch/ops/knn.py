@@ -126,5 +126,6 @@ def mean_dist3_exact(points: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
 def initial_log_scales(points: torch.Tensor, window: int = 32) -> torch.Tensor:
     """log(sqrt(clamp(dist2, 1e-7))) per point, tiled to 3 axes: the
     isotropic scale init of GaussianModel.create_from_pcd."""
+    # an initial value: no gradient flows back to the points
     d2 = torch.clamp_min(mean_dist3(points, window=window), 1e-7)
     return torch.log(torch.sqrt(d2))[:, None].expand(-1, 3).contiguous()

@@ -34,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import gaussians as G
-from ..core.device import resolve_device
+from ..core.device import max_tie, resolve_device
 from . import binning as B
 
 NEAR_PLANE = G.NEAR_PLANE
@@ -152,9 +152,11 @@ def _chunk_eval(feat_c, u, v):
     BB = 2.0 * (B_[0] * U + B_[1] * V + B_[2])           # 2 a.b
 
     # AA and num are PSD forms; the monomial evaluation can round slightly
-    # negative for thin Gaussians, so clamp both (as the JAX package does)
-    AA_safe = torch.clamp_min(AA, 1e-12)
-    num = torch.clamp_min(num, 0.0)
+    # negative for thin Gaussians, so clamp both (as the JAX package does,
+    # with jnp.maximum's half gradient at the tie: num is exactly 0 on a
+    # Gaussian's own pixel ray often)
+    AA_safe = max_tie(AA, 1e-12)
+    num = max_tie(num, 0.0)
     t = -BB / (2.0 * AA_safe)
     min_value = num / AA_safe
     # pass-through clamps (the CUDA reference keeps the full gradient
@@ -170,7 +172,7 @@ def _chunk_eval(feat_c, u, v):
     inv_len = 1.0 / length
     nn = torch.stack([-nx * inv_len, -ny * inv_len, -nz * inv_len], -1)
 
-    t_pos = torch.clamp_min(t, 1e-6)     # m-mapping guard; masked downstream
+    t_pos = max_tie(t, 1e-6)     # m-mapping guard; masked downstream
     m = (FAR_PLANE * t_pos - FAR_PLANE * NEAR_PLANE) / (
         (FAR_PLANE - NEAR_PLANE) * t_pos)
     rgb = feat_c[:, None, :, ROW_RGB:ROW_RGB + 3]       # (T, 1, C, 3)

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..core import cameras
-from ..core.device import StageClock, resolve_device
+from ..core.device import StageClock, clip_tie, resolve_device
 from .config import PipelineConfig
 from . import renderer
 
@@ -73,7 +73,7 @@ def cycle_aggregate(model, cfg: PipelineConfig, gaussians, agg, bg):
     Returns (merged gaussians dict (B, (1+V)·P, ...), rendered views)."""
     views = renderer.render_views_batched(
         gaussians, agg.world_view, agg.full_proj, agg.cam_centers, bg, cfg)
-    rgb = torch.clamp(views["render"], 0.0, 1.0)       # (B, V, 3, H, W)
+    rgb = clip_tie(views["render"], 0.0, 1.0)         # (B, V, 3, H, W)
     alpha = views["rendered_alpha"]                    # (B, V, 1, H, W)
     depth = views["rendered_depth"][:, :, 0]           # (B, V, H, W)
 

@@ -43,7 +43,7 @@ import torch
 import torch.distributed as dist
 
 from ..core import cameras as C
-from ..core.device import StageClock, resolve_device
+from ..core.device import StageClock, clip_tie, resolve_device
 from ..models import predictor as P
 from ..pipeline import renderer
 from ..pipeline.config import PipelineConfig
@@ -228,7 +228,7 @@ def loss_fn(model, cfg: PipelineConfig, batch, cameras_pack: CamerasPack,
     if w.w_clip:
         from ..models import clip
         terms["clip"] = w.w_clip * clip.clip_loss(
-            towers["clip"], recon.clamp(0.0, 1.0), target)
+            towers["clip"], clip_tie(recon, 0.0, 1.0), target)
     if w.w_distortion:
         terms["distortion"] = w.w_distortion * views["distortion_map"][:, 0].abs().mean()
 

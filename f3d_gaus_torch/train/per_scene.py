@@ -448,6 +448,7 @@ def densify_and_prune(scene: SceneParams, opt: AdamState, stats: SceneStats,
 def reset_opacity(scene: SceneParams, opt: AdamState):
     """opacity <- min(opacity, inverse_sigmoid(0.01)); its Adam moments are
     zeroed (reset_opacity + replace_tensor_to_optimizer, :210-271)."""
+    # the reset value becomes a new leaf: no gradient flows through it
     new_op = torch.clamp_max(scene.opacity,
                              float(np.float32(inverse_sigmoid(0.01))))
     scene = scene._replace(opacity=new_op)

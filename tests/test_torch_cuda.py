@@ -118,14 +118,18 @@ def test_wrapper_rejects_bad_inputs(cuda):
     assert (aux.final_T == 1).all() and (aux.last_pos == -1).all()
 
 
-def _bwd_inputs(case, device):
-    """A small case prepared on `device`, the forward kernel's residuals
-    and a seeded out9 cotangent with the alpha channel zeroed."""
+def _bwd_inputs(case, device, zero_qk=False):
+    """A small case prepared on `device` (with `zero_qk`, the qk rows of
+    every third Gaussian zeroed: torch_cases.zero_qk), the forward
+    kernel's residuals and a seeded out9 cotangent with the alpha channel
+    zeroed."""
     name, cam, cloud, bg, kw = next(c for c in torch_cases.small_cases()
                                     if c[0] == case)
     inp = TR.prepare(*[torch.from_numpy(a).to(device) for a in cloud], cam,
                      torch.from_numpy(bg).to(device), **kw)
     feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
+    if zero_qk:
+        feat = torch_cases.zero_qk(feat)
     extra = torch.cat([inp.pre.conic, inp.pre.means2d], 1).detach()
     b = inp.binning
     slab = (b.point_list, b.tile_start, b.tile_count, inp.bg)
@@ -145,6 +149,29 @@ def test_bwd_kernel_matches_plain(cuda, case):
     torch.cuda.synchronize()
     assert cuda_raster.launches_bwd == before + 1
     p = TR._composite_bwd_impl(feat, extra, *slab, aux, g, s)
+    for got, ref in zip(k, p):
+        assert torch.isfinite(got).all()
+        tol = 5e-3 * ref.abs().amax(0, keepdim=True)
+        assert ((got - ref).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("case", ["cloud96_mpt128", "near_opaque64"])
+def test_bwd_kernel_halves_at_num_zero(cuda, case):
+    """K2 at num = |b x Md|^2 = 0 exactly (the Gaussians whose qk rows are
+    zero, where every evaluation gives 0): the clamp max(num, 0) passes
+    half of the cotangent there, as jnp.maximum does and the plain
+    backward does, so their qk-row gradients agree at 1e-4 x the largest
+    |g| of those rows (atomics reorder the sums; a clamp that passes all
+    or none of it misses by half).  Every row is held as in
+    test_bwd_kernel_matches_plain."""
+    feat, extra, slab, aux, g, s = _bwd_inputs(case, cuda, zero_qk=True)
+    k = cuda_raster.composite_bwd(feat, extra, *slab, aux, g, s)
+    p = TR._composite_bwd_impl(feat, extra, *slab, aux, g, s)
+    torch.cuda.synchronize()
+    qk = slice(TR.ROW_QK, TR.ROW_QK + 6)
+    got, ref = k[0][::3, qk], p[0][::3, qk]
+    assert ref.abs().max() > 0
+    assert ((got - ref).abs() <= 1e-4 * ref.abs().max()).all()
     for got, ref in zip(k, p):
         assert torch.isfinite(got).all()
         tol = 5e-3 * ref.abs().amax(0, keepdim=True)

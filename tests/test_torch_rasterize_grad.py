@@ -85,8 +85,9 @@ def chunk_eval_vjp(feat_c, u, v, cots):
 
     cots: cotangents of alpha_raw, t, m (T, PIX, C), nn (T, PIX, C, 3) and
     rgb (T, 1, C, 3); G takes none.  Returns d feat_c (T, C, NFEAT),
-    summed over the pixels.  The clamps of AA and num pass no gradient
-    where they bind; the pass-through minima pass all of it."""
+    summed over the pixels.  The clamps of AA and num pass all of the
+    gradient above their bound, half at it and none below (jnp.maximum's
+    share); the pass-through minima pass all of it."""
     def e(i):
         return feat_c[:, None, :, i]
     U, V = u[..., None], v[..., None]
@@ -117,8 +118,10 @@ def chunk_eval_vjp(feat_c, u, v, cots):
     d_t = cots["t"] + torch.where(t > 1e-6, cots["m"] * dm_dt, 0.0)
     # t = -BB / (2 AA_safe),  mv = num / AA_safe
     d_BB = -0.5 * d_t * inv_AA
-    d_AA = torch.where(AA > 1e-12, -(d_t * t + d_mv * mv) * inv_AA, 0.0)
-    d_num = torch.where(num > 0.0, d_mv * inv_AA, 0.0)
+    def share(x, lo):
+        return torch.where(x > lo, 1.0, torch.where(x == lo, 0.5, 0.0))
+    d_AA = share(AA, 1e-12) * (-(d_t * t + d_mv * mv) * inv_AA)
+    d_num = share(num, 0.0) * (d_mv * inv_AA)
     # nn = -n / sqrt(|n|^2 + 1e-7),  n = (M^T M) d
     nx = qa[0] * U + 0.5 * qa[1] * V + 0.5 * qa[3]
     ny = 0.5 * qa[1] * U + qa[2] * V + 0.5 * qa[4]

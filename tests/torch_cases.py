@@ -85,6 +85,37 @@ def behind_camera(rng, n=32):
     return tuple(cloud)
 
 
+def pixel_aligned(rng, res=32):
+    """(camera, cloud): one Gaussian on each pixel-centre ray of the
+    canonical res^2 camera at a random depth, as the predictor lays them
+    out; on its own ray num = |b x Md|^2 is 0 up to rounding, and often
+    exactly 0."""
+    cam = orbit_camera(res, res, yaw=0.0, pitch=0.0)
+    n = res * res
+    px = np.arange(n) % res + 0.5
+    py = np.arange(n) // res + 0.5
+    depth = rng.uniform(6.9, 8.4, n)
+    means = np.stack([cam_point(cam, x, y, d)
+                      for x, y, d in zip(px, py, depth)])
+    scales = rng.uniform(0.02, 0.06, size=(n, 3)).astype(np.float32)
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+    opac = rng.uniform(0.3, 0.9, size=(n, 1)).astype(np.float32)
+    shs = (rng.normal(size=(n, 4, 3)) * 0.3).astype(np.float32)
+    shs[:, 0] += 0.8
+    return cam, (means, scales, quats, opac, shs)
+
+
+def zero_qk(feat, every=3):
+    """A copy of the (P, NFEAT) feature table with the qk rows (the
+    monomial form of num = |b x Md|^2) of every `every`-th Gaussian zeroed:
+    num is then exactly 0 on each of its rays in every evaluation."""
+    from f3d_gaus_torch.ops import rasterize as R
+    out = feat.clone()
+    out[::every, R.ROW_QK:R.ROW_QK + 6] = 0.0
+    return out
+
+
 def bench_scene(rng, res=256, n=256 * 256):
     """bench.py:29-47: (camera, cloud) of the 65,536-Gaussian flagship."""
     cam = orbit_camera(res, res)
