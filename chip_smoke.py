@@ -107,7 +107,12 @@ Phases, one JSON line each:
      step's objective on GRAD_BATCH images from one forward, through K2
      twice and through the plain compositing backward once, each
      parameter tensor >= 99.9 % of elements within max(5e-3 x max|g|,
-     2 x K2's own spread);
+     2 x K2's own spread); abs_ties: at that step, for each |x| site of
+     the loss (rgb, depth, alpha, tv, perceptual, distortion, warping,
+     cycle) the elements exactly +-0, those where the argument depends on
+     the parameters, and the gradient jnp.abs's +1 at 0 adds (what
+     core/device.py:abs_tie passes) against the step's own, per parameter
+     tensor (a census; only finiteness is required);
   8. kernel_timing_bwd: K2 at the training step's two shapes (canonical
      render, P = 65,536; cycle render, P = 131,072) of image 0, whole and
      each pass alone (decide_ms, backward_ms), beside the plain backward
@@ -154,7 +159,8 @@ Phases, one JSON line each:
      test_lpips is required, its value means nothing); scene_step_trace:
      utils.profiling.trace around 10 steps at the fitted scene (kernels
      and launch calls per step, host ms per step, the device's busy share,
-     the top device operations); band_vs_plain at the fitted render and
+     the top device operations); abs_ties at one such step (the L1 term's
+     ties, as at the training step); band_vs_plain at the fitted render and
      first training camera in SCENE_BANDS bands (each band by versus_f64).
 Then the `kernels` line, the card's name and power limit, and last the
 result line.  Any failure raises, so the script exits non-zero and prints
@@ -275,6 +281,15 @@ GRAD_BATCH_WHY = (
     "per image; the gradient is a sum over images, so more hold no new "
     "path")
 STEP_GRAD_SHARE = 0.999
+# phase abs_ties: a census, not a hold; tensors_over_tol counts the
+# parameter tensors where the repair's gradient exceeds GRAD_TOL x max|g|
+ABS_TIES_TEXT = (
+    "a census: per |x| site of the step's loss the elements exactly +-0, "
+    "those the term weighs and those that depend on the parameters (a "
+    "pixel with a contributor, a VGG tap positive on either side); the "
+    "gradient the repair adds (the vector-Jacobian product of weight/N on "
+    "those ties) against the step's own, per parameter tensor, and the "
+    f"tensors where it exceeds {GRAD_TOL} x max|g|")
 GRAD_NAMES = ("means", "scales", "quats", "opacities", "shs", "means2d_stats")
 
 
@@ -1751,6 +1766,185 @@ def step_grads_vs_plain(state, cfg, batch, pack, weights, towers):
     return res
 
 
+def contributed(out):
+    """(H, W) bool: the pixels of a rasterize.render output with at least
+    one contributor (K1's last_pos >= 0)."""
+    gx, gy = out["binning"].grid
+    H, W = out["render"].shape[-2:]
+    lp = out["aux"].last_pos.reshape(gy, gx, 16, 16).permute(0, 2, 1, 3)
+    return (lp.reshape(gy * 16, gx * 16) >= 0)[:H, :W]
+
+
+def tie_site(pieces, names, params, g_step, weight):
+    """The census of one |x| site: pieces are (arg, scale, depends) with arg
+    the tensor whose |.| the loss takes, scale the term's d loss / d |arg|
+    (its weight over N, a mask's share; a number or a tensor that
+    broadcasts) and depends a bool tensor, True where arg depends on the
+    parameters at all.  Counts the elements exactly +-0, those the term
+    weighs, and those of them where arg depends on the parameters; then the
+    vector-Jacobian product into `params` of the cotangent that is `scale`
+    on those ties and 0 elsewhere, taken through arg: the gradient that
+    jnp.abs's +1 at 0 adds over torch.abs's 0.  Against the step's own
+    gradient g_step, per parameter tensor: max |dg| / max |g|.  A term of
+    weight 0 (the yaml's w_distortion) is counted at weight 1."""
+    import numpy as np
+    import torch
+
+    ties = weighed = dependent = 0
+    cots = []
+    for arg, scale, dep in pieces:
+        tie = arg.detach() == 0
+        s = torch.as_tensor(scale, dtype=arg.dtype, device=arg.device)
+        s = s.expand_as(arg)
+        live = tie & (s != 0)
+        ties += int(tie.sum())
+        weighed += int(live.sum())
+        dependent += int((live & dep.expand_as(arg)).sum())
+        cots.append(torch.where(live, s, torch.zeros_like(s)))
+    res = {"elements": sum(a.numel() for a, _, _ in pieces), "ties": ties,
+           "ties_in_term": weighed, "ties_dependent": dependent,
+           "weight": weight}
+    dg = [None] * len(params)
+    if weighed:
+        dg = torch.autograd.grad([a for a, _, _ in pieces], params, cots,
+                                 retain_graph=True, allow_unused=True)
+    rel = {}
+    for name, d, g in zip(names, dg, g_step):
+        if g is None:
+            continue
+        dmax = 0.0 if d is None else float(d.abs().max())
+        require(np.isfinite(dmax), f"finite tie gradient of {name}")
+        rel[name] = dmax / max(float(g.abs().max()), 1e-30)
+    worst = max(rel, key=rel.get)
+    res.update(max_rel=rel[worst], worst_tensor=worst if rel[worst] else None,
+               tensors_nonzero=sum(r > 0 for r in rel.values()),
+               tensors_over_tol=sum(r > GRAD_TOL for r in rel.values()),
+               tensors=len(rel))
+    return res
+
+
+def abs_ties_train(state, cfg, batch, pack, weights, towers):
+    """Phase abs_ties at the training step of step_grads_vs_plain (its
+    GRAD_BATCH images, the yaml's weights with the towers): each |x| site
+    of feedforward.loss_fn, its arguments taken by wrapping losses.l1 /
+    masked_l1, renderer.render_views_batched and rasterize.render (for the
+    contributors) and a forward hook on the VGG16 tower for the ten taps,
+    while loss_fn runs unchanged; then tie_site against the step's own
+    gradient of that forward."""
+    import torch
+    from f3d_gaus_torch.ops import rasterize as R
+    from f3d_gaus_torch.pipeline import renderer
+    from f3d_gaus_torch.train import feedforward as F
+    from f3d_gaus_torch.train import losses as L
+
+    B = GRAD_BATCH
+    part = {k: v[:B] for k, v in batch.items()}
+    names, params = zip(*[(n, p) for n, p in state.model.named_parameters()
+                          if p.requires_grad])
+    rec = {"l1": [], "masked_l1": [], "views": [], "contrib": []}
+    orig = (L.l1, L.masked_l1, renderer.render_views_batched, R.render)
+
+    def l1(a, b):
+        rec["l1"].append((a, b))
+        return orig[0](a, b)
+
+    def masked_l1(a, b, mask, eps=1e-6):
+        rec["masked_l1"].append((a, b, mask, eps))
+        return orig[1](a, b, mask, eps)
+
+    def views_batched(g, world_views, *a, **k):
+        n0 = len(rec["contrib"])
+        views = orig[2](g, world_views, *a, **k)
+        c = torch.stack(rec["contrib"][n0:])          # (V * B, H, W)
+        c = c.reshape(len(world_views), -1, *c.shape[1:]).transpose(0, 1)
+        rec["views"].append((views, c[:, :, None]))   # (B, V, 1, H, W)
+        return views
+
+    def render(*a, **k):
+        out = orig[3](*a, **k)
+        rec["contrib"].append(contributed(out))
+        return out
+
+    taps = []
+    hook = towers["vgg"].register_forward_hook(
+        lambda mod, inp, out: taps.append(out))
+    L.l1, L.masked_l1, renderer.render_views_batched, R.render = (
+        l1, masked_l1, views_batched, render)
+    try:
+        loss, aux = F.loss_fn(state.model, cfg, part, pack, weights,
+                              state.step, F.Curriculum(), towers)
+    finally:
+        L.l1, L.masked_l1, renderer.render_views_batched, R.render = orig
+        hook.remove()
+    require(not bool(aux["overflow"].any()), "overflow in the census step")
+    require(len(rec["l1"]) == 2 and len(rec["masked_l1"]) == 2
+            and len(rec["views"]) == 2 and len(taps) == 2,
+            "the census saw every site once")
+    g_step = torch.autograd.grad(loss, params, retain_graph=True,
+                                 allow_unused=True)
+    w = weights
+    (views, contrib), (cyc, cyc_contrib) = rec["views"]
+    cano, novel = contrib[:, 0], contrib[:, 1]
+
+    def mean_of(arg, wt, dep):
+        return [(arg, wt / arg.numel(), dep)]
+
+    def masked(a, b, mask, eps, wt, dep):
+        m = mask.to(a.dtype).expand(torch.broadcast_shapes(
+            a.shape, b.shape, mask.shape))
+        return [(a - b, wt * m / (m.sum() + eps), dep)]
+
+    depth = views["rendered_depth"][:, 0]
+    dh = depth[..., 1:, :] - depth[..., :-1, :]
+    dw = depth[..., :, 1:] - depth[..., :, :-1]
+    fx, fy = taps
+    sites = {
+        "rgb": (w.w_rgb, mean_of(rec["l1"][0][0] - rec["l1"][0][1], w.w_rgb,
+                                 cano)),
+        "depth": (w.w_depth, masked(*rec["masked_l1"][0], w.w_depth, cano)),
+        "alpha": (w.w_alpha, mean_of(views["rendered_alpha"][:, 0] - 1.0,
+                                     w.w_alpha, cano)),
+        "tv": (w.w_tv, mean_of(dh, w.w_tv, cano[..., 1:, :]
+                               | cano[..., :-1, :])
+               + mean_of(dw, w.w_tv, cano[..., :, 1:] | cano[..., :, :-1])),
+        "perceptual": (w.w_perceptual, [
+            (a - b, w.w_perceptual / (len(fx) * a.numel()), (a > 0) | (b > 0))
+            for a, b in zip(fx, fy)]),
+        "distortion": (w.w_distortion, mean_of(
+            views["distortion_map"][:, 0], w.w_distortion or 1.0, cano)),
+        "warping": (w.w_warping, masked(*rec["masked_l1"][1], w.w_warping,
+                                        novel)),
+        "cycle": (w.w_cycle, mean_of(rec["l1"][1][0] - rec["l1"][1][1],
+                                     w.w_cycle, cyc_contrib[:, 0])),
+    }
+    out = {name: tie_site(pieces, names, params, g_step, wt)
+           for name, (wt, pieces) in sites.items()}
+    return {"batch": B, "loss": loss.item(), "sites": out}
+
+
+def abs_ties_scene(scene, cam, target, cfg, sh_degree):
+    """Phase abs_ties at the per-scene step of scene_step_trace at the
+    fitted scene: the one |x| site, the L1 of per_scene._loss_fn, its
+    argument recomputed from the render that _loss_fn returns."""
+    import torch
+    from f3d_gaus_torch.train import per_scene as PS
+
+    dev = scene.xyz.device
+    names = tuple(PS.SceneParams._fields[:-1])
+    diff = [t.detach().requires_grad_() for t in tuple(scene)[:-1]]
+    stats_in = torch.zeros((scene.xyz.shape[0], 3), device=dev,
+                           requires_grad=True)
+    loss, _, out = PS._loss_fn(diff, scene.alive, stats_in, cam, target,
+                               torch.zeros(3, device=dev), cfg, sh_degree)
+    require(not bool(out["overflow"]), "overflow in the census step")
+    g_step = torch.autograd.grad(loss, diff, retain_graph=True)
+    arg = out["render"][None] - target[None]
+    wt = 1.0 - cfg.lambda_dssim
+    return {"loss": loss.item(), "sites": {"l1": tie_site(
+        [(arg, wt / arg.numel(), contributed(out))], names, diff, g_step,
+        wt)}}
+
+
 def training_path(args, dev, card):
     """Phases 7 and 8: feedforward.train_step at full width with the launch
     counts set to 0 just before the steps, then K2's timing at the
@@ -1854,6 +2048,10 @@ def training_path(args, dev, card):
          tol=f">= {STEP_GRAD_SHARE} of each parameter tensor's elements "
              f"within max({GRAD_TOL} x max|g|, 2 x K2's own spread)",
          **step_grads_vs_plain(state, cfg, batch, pack, weights, towers))
+    torch.cuda.empty_cache()
+    emit("abs_ties", card=card, step="training", config="PipelineConfig()",
+         tol=ABS_TIES_TEXT, **abs_ties_train(state, cfg, batch, pack,
+                                             weights, towers))
     torch.cuda.empty_cache()
     del towers
 
@@ -2949,6 +3147,10 @@ def scene_path(args, dev, card):
             split.append(t)
     emit("scene_step_trace", card=card, **step_trace(
         step, os.path.join(work, "trace")))
+    emit("abs_ties", card=card, step="per_scene", config="PerSceneConfig()",
+         tol=ABS_TIES_TEXT, **abs_ties_scene(
+             scene, train_cams[0].camera, targets[0], cfg,
+             min(n_it // cfg.sh_degree_interval, cfg.sh_degree)))
     del opt, stats, targets
     step_ms = {k: float(np.median([t[k] for t in split]))
                for k in ("forward", "backward", "adam")}

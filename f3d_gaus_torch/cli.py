@@ -94,7 +94,8 @@ def main(argv=None):
                                 torch.Generator().manual_seed(0))
     if args.load_model:
         from .models import convert
-        model.load_state_dict(convert.convert_checkpoint(args.load_model))
+        model.load_state_dict(convert.convert_checkpoint(
+            args.load_model, cfg.predictor_config()))
         print(f"loaded torch checkpoint {args.load_model}")
     else:
         print("WARNING: no --load_model; using random predictor weights")

@@ -160,7 +160,9 @@ def rotmat_to_quat(m) -> np.ndarray:
 
     Branch-free four-case algorithm (reference
     src/dataio_gs_test_256_demo.py:262-297): every candidate is computed and
-    the numerically safest one is selected, as in the JAX package.
+    the numerically safest one is selected, as in the JAX package.  This
+    numpy copy serves the numpy camera code; core/quaternions.py:
+    rotmat_to_quat is the differentiable tensor version.
     """
     m = np.asarray(m, np.float32)
     m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]

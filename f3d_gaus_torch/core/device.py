@@ -48,6 +48,33 @@ def clip_tie(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return min_tie(max_tie(x, lo), hi)
 
 
+# |x| on a differentiable path follows jnp.abs, which passes +g at x = 0
+# (-0.0 included); torch.abs passes 0 there.
+class _AbsTie(torch.autograd.Function):
+    @staticmethod
+    def forward(x):
+        return x.abs()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def abs_tie(x: torch.Tensor) -> torch.Tensor:
+    """|x| with jnp.abs's gradient: -1 below 0, +1 at -0.0, 0.0 and above.
+
+    The value is torch.abs's (+0.0 at -0.0, as jnp.abs).  One kernel
+    forward, three backward (torch.abs's takes two); torch.where(x >= 0, x,
+    -x) has the same gradient but takes three forward and about four
+    backward, and gives -0.0 at -0.0."""
+    return _AbsTie.apply(x)
+
+
 class StageClock:
     """Wall seconds per stage into `timings` (a dict), synchronising the
     card at each lap; does nothing when `timings` is None."""

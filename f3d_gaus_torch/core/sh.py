@@ -1,8 +1,11 @@
-"""Spherical-harmonics color evaluation (counterpart of
-f3d_gaus_tpu/core/sh.py).
+"""Spherical-harmonics color evaluation and the degree-1 SH frame
+rotation (counterpart of f3d_gaus_tpu/core/sh.py).
 
 shs has shape (..., K, 3) with K = (deg+1)^2, band order (0,0), (1,-1),
 (1,0), (1,1), ...  Colors are `max(SH(dir) + 0.5, 0)`.
+`transform_shs_deg1` is the one definition of the rotation in the port:
+models/predictor.py calls it (the JAX package keeps a second copy in its
+models/predictor.py).
 """
 from __future__ import annotations
 
@@ -63,3 +66,25 @@ def sh_color_from_gaussians(deg: int, shs: torch.Tensor, means: torch.Tensor,
     dirs = dirs / norm
     raw = eval_sh(deg, shs, dirs)
     return max_tie(raw, 0.0), raw < 0
+
+
+# --- degree-1 SH frame rotation -------------------------------------------
+# The feed-forward predictor emits SH in camera space and rotates band-1
+# coefficients to world space by conjugating the camera rotation with the
+# (v <-> SH basis) permutation (reference gaussian_predictor.py:821-837).
+
+V_TO_SH = torch.tensor([[0., 0., -1.], [-1., 0., 0.], [0., 1., 0.]])
+SH_TO_V = V_TO_SH.T
+
+
+def transform_shs_deg1(features_rest: torch.Tensor,
+                       cam_to_world: torch.Tensor) -> torch.Tensor:
+    """Rotate degree-1 SH coefficients from the camera to the world frame.
+    features_rest: (B, N, 3, 3) [sh, rgb]; cam_to_world: (B, 4, 4) in the
+    row-vector layout (its top-left 3x3 is used as the reference
+    multiplies it).  Returns (B, N, 3, 3)."""
+    t = (SH_TO_V.to(cam_to_world) @ cam_to_world[:, :3, :3]
+         @ V_TO_SH.to(cam_to_world))                      # (B, 3, 3)
+    s = features_rest.transpose(-1, -2)                    # (B, N, rgb, sh)
+    s = torch.einsum("bnrs,bst->bnrt", s, t)
+    return s.transpose(-1, -2)                             # (B, N, sh, rgb)

@@ -15,6 +15,12 @@ names are OpenAI's `visual.*` keys without the prefix, so `load_tower`
 reads an OpenAI state_dict as it is.  Weights are not bundled: the user
 supplies the file.  The matmuls are cuBLAS's in full f32 (TF32 off,
 core/device.py), as the JAX package leaves them to XLA.
+
+Not ported, by design: the JAX module's functional `init_params`
+(`CLIPVisual(grid, generator)` takes its place) and
+`convert_torch_clip_visual`: `load_tower` replaces it, and takes only the
+`visual.*` keys, where the JAX function strips `visual.` from the text
+tower's keys too.
 """
 from __future__ import annotations
 

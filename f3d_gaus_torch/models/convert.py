@@ -10,17 +10,20 @@ f3d_gaus_tpu/models/convert.py).
     visual tree (numpy leaves) -> the port's models/vgg.py and
     models/clip.py state_dicts, so both packages can compute the same
     losses.
-  * `load_torch_state_dict(path)` / `convert_checkpoint(path)`: the
-    reference's pretrained .pt (GaussianSplatPredictor_gtunet weights under
+  * `load_torch_state_dict(path)`, `convert_predictor(sd, cfg)` and
+    `convert_checkpoint(path, cfg)`: the reference's pretrained .pt
+    (GaussianSplatPredictor_gtunet weights under
     'gaussian_predictor.network_with_offset.', possibly with a DDP 'module.'
-    prefix) -> a GaussianPredictor state_dict.
+    prefix) -> a GaussianPredictor(cfg) state_dict.  The JAX package's
+    converters return its parameter tree (HWIO convolutions); these return
+    the state_dict, whose layout is the reference's own (OIHW).  As there,
+    every key the predictor needs must be present (KeyError otherwise) and
+    other keys are left out.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
-
-_REF_PREFIX = "gaussian_predictor.network_with_offset."
 
 
 def _leaf(name, value):
@@ -107,8 +110,20 @@ def load_torch_state_dict(path):
             for k, v in sd.items()}
 
 
-def convert_checkpoint(path) -> dict:
-    """Path to the reference .pt -> GaussianPredictor state_dict."""
-    sd = load_torch_state_dict(path)
-    return {k[len(_REF_PREFIX):]: v.float() for k, v in sd.items()
-            if k.startswith(_REF_PREFIX)}
+def convert_predictor(sd, cfg, net_name="network_with_offset") -> dict:
+    """The reference's flat state_dict -> a GaussianPredictor(cfg)
+    state_dict (cfg: a PredictorConfig): exactly the keys the predictor
+    has, read under 'gaussian_predictor.{net_name}.'.  A missing key raises
+    KeyError, as the JAX converter's plan walk does; other keys are left
+    out."""
+    from .predictor import GaussianPredictor
+    with torch.device("meta"):                 # the key set, no weights
+        keys = GaussianPredictor(cfg).state_dict().keys()
+    base = f"gaussian_predictor.{net_name}."
+    return {k: torch.as_tensor(sd[base + k]).detach().float() for k in keys}
+
+
+def convert_checkpoint(path, cfg) -> dict:
+    """Path to the reference .pt -> GaussianPredictor(cfg) state_dict (the
+    JAX package's returns its parameter tree)."""
+    return convert_predictor(load_torch_state_dict(path), cfg)

@@ -7,6 +7,10 @@ nearest-neighbour 2x upsampling / 2x2 mean-pool downsampling before the
 convolution.  Attention scores are computed in float32 with a plain matmul
 and softmax.  Initialization is EDM's xavier_uniform with a gain, drawn from
 an explicit torch.Generator.
+
+Not ported, by design: the JAX module's functional `conv2d`, `group_norm`
+and `linear` and their `conv_init`, `groupnorm_init` and `linear_init`;
+here each layer is an nn.Module that holds and initialises its weights.
 """
 from __future__ import annotations
 

@@ -8,6 +8,10 @@ Parity target: GaussianSplatPredictor_gtunet with the shipped config
 pos = ray_dirs * depth + offset, and the camera->world lifting rotates
 positions, rotations (quaternion pre-multiply by cv2wT_quat) and degree-1 SH.
 State_dict keys are `encoder.<reference name>` and `out.weight/bias`.
+
+Not ported, by design: the JAX module's functional `init_params` /
+`apply`; `GaussianPredictor(cfg, generator)` and its forward take their
+place.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core import sh
 from ..core.quaternions import quat_multiply
 from . import layers as L
 from . import songunet
@@ -77,9 +82,9 @@ def ray_dirs_grid(cfg: PredictorConfig) -> np.ndarray:
     return np.stack([gx / focal, gy / focal, np.ones_like(gx)], axis=-1)
 
 
-# SH basis <-> view-vector basis change used for degree-1 rotation
-_V_TO_SH = np.array([[0, 0, -1], [-1, 0, 0], [0, 1, 0]], np.float32)
-_SH_TO_V = _V_TO_SH.T
+# the degree-1 SH rotation into world space (the JAX package keeps a copy
+# here; the port's one definition is core/sh.py's)
+transform_shs_deg1 = sh.transform_shs_deg1
 
 
 def make_plan(cfg: PredictorConfig):
@@ -89,17 +94,6 @@ def make_plan(cfg: PredictorConfig):
         out_channels=sum(splits),
         model_channels=cfg.model_channels or cfg.base_dim,
         num_blocks=cfg.num_blocks, attn_resolutions=tuple(cfg.attn_resolutions))
-
-
-def transform_shs_deg1(shs, view_to_world):
-    """Rotate degree-1 SH coefficients into world space.  shs: (B, N, 3, 3)
-    [sh_num, rgb]; view_to_world: (B, 4, 4) row-vector layout."""
-    sh_to_v = torch.as_tensor(_SH_TO_V, device=shs.device)
-    v_to_sh = torch.as_tensor(_V_TO_SH, device=shs.device)
-    t = sh_to_v @ view_to_world[:, :3, :3] @ v_to_sh     # (B, 3, 3)
-    s = shs.transpose(-1, -2)                            # (B, N, rgb, sh)
-    s = torch.einsum("bnrs,bst->bnrt", s, t)
-    return s.transpose(-1, -2)                           # (B, N, sh, rgb)
 
 
 class GaussianPredictor(nn.Module):

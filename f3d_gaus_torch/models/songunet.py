@@ -9,6 +9,9 @@ label embedding; dropout is inference-off.
 Cross-view attention folds the view axis into the token axis: the
 reference reshapes (B, C, H, W) -> (B/N, C, N·H, W) before its attention
 block, so the GroupNorm statistics of norm2 span all N views.
+
+Not ported, by design: the JAX module's functional `init_params` /
+`apply`; `SongUNet(plan, generator)` and its forward take their place.
 """
 from __future__ import annotations
 

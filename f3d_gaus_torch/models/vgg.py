@@ -20,6 +20,9 @@ Weights are not bundled: `load_towers` reads a torchvision vgg16 state_dict
 (full or features only; `classifier.*` keys are ignored) and optionally the
 LPIPS linear heads from files the user supplies.  The convolutions are
 cuDNN's (TF32 off, core/device.py), as the JAX package leaves them to XLA.
+
+Not ported, by design: the JAX module's functional `init_params`;
+`VGG16(generator)` draws the same He init from a torch.Generator.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ import math
 import torch
 from torch import nn
 
-from ..core.device import resolve_device
+from ..core.device import abs_tie, resolve_device
 
 # channels of the 13 convs, blocks separated by 2x2 maxpools
 VGG16_PLAN = ((64, 64), (128, 128), (256, 256, 256),
@@ -124,7 +127,7 @@ def perceptual_loss(vgg: VGG16, x, y):
     weight file serves both objectives."""
     fx = vgg(_z_score(vgg, 2.0 * x - 1.0))
     fy = vgg(_z_score(vgg, 2.0 * y - 1.0))
-    return sum(torch.mean(torch.abs(a - b)) for a, b in zip(fx, fy)) / len(fx)
+    return sum(torch.mean(abs_tie(a - b)) for a, b in zip(fx, fy)) / len(fx)
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,10 @@ import torch
 
 BLOCK = 16
 ALIGN = 128           # default slab alignment
+# the largest int32: the JAX package's sort key of an invalid pair.  Here a
+# slot past the pairs sorts as tile `num_tiles` instead, so the name marks
+# the int32 limit where words are read back as signed (rasterize.py).
+INT32_MAX = 2147483647
 
 
 class Binning(NamedTuple):

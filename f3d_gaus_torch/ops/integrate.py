@@ -26,6 +26,9 @@ binning per view, one view at a time, and a running minimum from 1 over
 the views.  Like the JAX package it does not stop on a truncated binning
 (pair_cap or max_per_tile too small); it counts such views in
 `overflow_views` instead.  Integrate has no gradient.
+
+`integrate_points` has no `bg` argument: the JAX function accepts one and
+never reads it.
 """
 from __future__ import annotations
 

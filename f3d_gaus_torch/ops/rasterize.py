@@ -265,7 +265,7 @@ def _pack_window_bits(bits_of_chunk, n_chunks, C, tile_start, tile_count,
         pos = ci * C + torch.arange(C, device=dev)
         words.index_add_(2, pos // 32,
                          bits_of_chunk(ci).long() << (pos % 32))
-    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    words = torch.where(words > B.INT32_MAX, words - (1 << 32), words)
     n = torch.clamp_max(tile_count.long(), s.max_per_tile)
     w = torch.arange(n_words, device=dev)
     sel = w[None, :] < ((n + 31) // 32)[:, None]                  # (T, W)

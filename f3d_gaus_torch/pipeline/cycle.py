@@ -94,7 +94,8 @@ def cycle_aggregate(model, cfg: PipelineConfig, gaussians, agg, bg):
 
 @torch.no_grad()
 def run_nvs(model, cfg: PipelineConfig, cams, images, depth, bg=None,
-            return_first=False, device=None, timings=None):
+            return_first=False, check_overflow=True, device=None,
+            timings=None):
     """End-to-end NVS: first forward -> cycle -> orbit renders.
 
     model: a GaussianPredictor (moved to the run's device); cams: anything
@@ -104,8 +105,10 @@ def run_nvs(model, cfg: PipelineConfig, cams, images, depth, bg=None,
     else cuda).  Returns (merged_gaussians, nvs renders dict (B, V, ...),
     aggregation views dict[, first-forward gaussians when return_first]).
 
-    Raises renderer.RenderOverflow if ANY render exceeded cfg.pair_cap /
-    cfg.max_per_tile (run_nvs_replanned doubles the caps).
+    check_overflow: raise renderer.RenderOverflow if ANY render exceeded
+    cfg.pair_cap / cfg.max_per_tile (run_nvs_replanned doubles the caps);
+    with False the truncated renders are returned, their `overflow` maps
+    set.
     timings: a dict to receive each stage's wall seconds ('first_forward',
     'cycle_aggregate', 'nvs_orbit'); the device is synchronised after each
     stage only when it is given.
@@ -127,7 +130,8 @@ def run_nvs(model, cfg: PipelineConfig, cams, images, depth, bg=None,
     renders = renderer.render_views_batched(
         merged, nvs.world_view, nvs.full_proj, nvs.cam_centers, bg, cfg)
     clock.lap("nvs_orbit")
-    n_over = int(agg_views["overflow"].sum() + renders["overflow"].sum())
+    n_over = (int(agg_views["overflow"].sum() + renders["overflow"].sum())
+              if check_overflow else 0)
     if n_over:
         raise renderer.RenderOverflow(
             f"{n_over} renders exceeded the static caps (pair_cap="
@@ -160,7 +164,7 @@ def run_nvs_replanned(model, cfg: PipelineConfig, cams, images, depth,
         try:
             merged, renders, agg_views, g0 = run_nvs(
                 model, cfg, cams, images, depth, return_first=True,
-                device=device, timings=timings)
+                check_overflow=True, device=device, timings=timings)
             return NVSResult(merged, renders, agg_views, g0, cfg, attempt + 1)
         except renderer.RenderOverflow as e:
             cfg = dataclasses.replace(cfg, pair_cap=cfg.pair_cap * 2,

@@ -32,6 +32,9 @@ denominator2 18 over [start_iter, end_iter]) picks, per step, a camera from
 banks precomputed on the host and ordered easy -> hard.  Each image
 renders three times per step (canonical, novel, cycle), each render
 through the compositing kernels forward and backward on the card.
+
+`train_step` takes no `lr`, unlike the JAX function: the learning rate
+lives in the state's Adam optimizer (`init_state(lr=)`).
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ import torch
 import torch.distributed as dist
 
 from ..core import cameras as C
-from ..core.device import StageClock, clip_tie, resolve_device
+from ..core.device import StageClock, abs_tie, clip_tie, resolve_device
 from ..models import predictor as P
 from ..pipeline import renderer
 from ..pipeline.config import PipelineConfig
@@ -219,7 +222,7 @@ def loss_fn(model, cfg: PipelineConfig, batch, cameras_pack: CamerasPack,
                                                   cover)
     terms["normal"] = w.w_normal * losses.normal_consistency(
         r_normal, d_normal, cover[:, 0])
-    terms["alpha"] = w.w_alpha * (r_alpha - 1.0).abs().mean()
+    terms["alpha"] = w.w_alpha * abs_tie(r_alpha - 1.0).mean()
     terms["tv"] = w.w_tv * losses.tv(r_depth)
     if w.w_perceptual:
         from ..models import vgg
@@ -230,7 +233,8 @@ def loss_fn(model, cfg: PipelineConfig, batch, cameras_pack: CamerasPack,
         terms["clip"] = w.w_clip * clip.clip_loss(
             towers["clip"], clip_tie(recon, 0.0, 1.0), target)
     if w.w_distortion:
-        terms["distortion"] = w.w_distortion * views["distortion_map"][:, 0].abs().mean()
+        terms["distortion"] = w.w_distortion * abs_tie(
+            views["distortion_map"][:, 0]).mean()
 
     # warping: the input image resampled into the novel view through the
     # novel view's (detached) rendered depth, vs the novel render

@@ -12,9 +12,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.device import abs_tie
+
 
 def l1(a, b):
-    return (a - b).abs().mean()
+    return abs_tie(a - b).mean()
 
 
 def psnr(a, b):
@@ -33,8 +35,8 @@ _WINDOW = _gaussian_window()
 
 def tv(x):
     """Total variation on (..., H, W) maps (yaml opt.w_tv)."""
-    dh = (x[..., 1:, :] - x[..., :-1, :]).abs().mean()
-    dw = (x[..., :, 1:] - x[..., :, :-1]).abs().mean()
+    dh = abs_tie(x[..., 1:, :] - x[..., :-1, :]).mean()
+    dw = abs_tie(x[..., :, 1:] - x[..., :, :-1]).mean()
     return dh + dw
 
 
@@ -43,7 +45,7 @@ def masked_l1(a, b, mask, eps=1e-6):
     against a/b (e.g. (B, 1, H, W) against (B, 3, H, W))."""
     shape = torch.broadcast_shapes(a.shape, b.shape, mask.shape)
     m = mask.to(a.dtype).expand(shape)
-    return ((a - b).abs() * m).sum() / (m.sum() + eps)
+    return (abs_tie(a - b) * m).sum() / (m.sum() + eps)
 
 
 def normal_consistency(n1, n2, mask=None):

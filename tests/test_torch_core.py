@@ -1,7 +1,8 @@
 """f3d_gaus_torch.core against f3d_gaus_tpu.core on the same numpy inputs:
 preprocess values at 1e-5 of max |ref| with radii exactly equal, SH
 evaluation, quaternions and the numpy camera copy (bit-equal); and the
-gradients of preprocess's render-facing outputs."""
+gradients of preprocess's render-facing outputs, of the degree-1 SH
+rotation and of rotmat_to_quat (5e-3 x max |g|)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +13,7 @@ from f3d_gaus_tpu.core import cameras as Jcam
 from f3d_gaus_tpu.core import gaussians as JG
 from f3d_gaus_tpu.core import quaternions as JQ
 from f3d_gaus_tpu.core import sh as JSH
+from f3d_gaus_tpu.models import predictor as JP
 from f3d_gaus_torch.core import cameras as Tcam
 from f3d_gaus_torch.core import gaussians as TG
 from f3d_gaus_torch.core import quaternions as TQ
@@ -151,3 +153,81 @@ def test_preprocess_grads_match_jax(culled):
         assert np.isfinite(g).all(), name
         np.testing.assert_allclose(g, r, rtol=0,
                                    atol=5e-3 * np.abs(r).max(), err_msg=name)
+
+
+def _grad_close(got, want, what):
+    want = np.asarray(want)
+    assert np.isfinite(got).all() and np.abs(want).max() > 0, what
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=5e-3 * np.abs(want).max(), err_msg=what)
+
+
+@pytest.mark.parametrize("jax_copy", ["core.sh", "models.predictor"])
+def test_transform_shs_deg1_matches_jax(jax_copy):
+    """core/sh.py:transform_shs_deg1 (the port's one definition; its
+    predictor calls it) against each of the JAX package's two copies:
+    values at 1e-5 of max |ref|, and the gradients of a seeded weighted sum
+    to the coefficients and the camera matrix."""
+    jfn = (JSH.transform_shs_deg1 if jax_copy == "core.sh"
+           else JP.transform_shs_deg1)
+    rng = np.random.default_rng(31)
+    shs = rng.normal(size=(2, 40, 3, 3)).astype(np.float32)
+    q = rng.normal(size=(2, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    c2w = np.zeros((2, 4, 4), np.float32)
+    c2w[:, :3, :3] = np.asarray(JQ.quat_to_rotmat(q))
+    c2w[:, 3, :3] = rng.normal(size=(2, 3))
+    c2w[:, 3, 3] = 1.0
+    w = rng.normal(size=shs.shape).astype(np.float32)
+    want = jfn(jnp.asarray(shs), jnp.asarray(c2w))
+    gj = jax.grad(lambda a, b: jnp.sum(jfn(a, b) * w), argnums=(0, 1))(
+        jnp.asarray(shs), jnp.asarray(c2w))
+    ts, tc = (torch.from_numpy(shs).requires_grad_(),
+              torch.from_numpy(c2w).requires_grad_())
+    got = TSH.transform_shs_deg1(ts, tc)
+    assert _rel(want, got.detach().numpy()) < 1e-5
+    (got * torch.from_numpy(w)).sum().backward()
+    _grad_close(ts.grad.numpy(), gj[0], "d features_rest")
+    _grad_close(tc.grad.numpy(), gj[1], "d cam_to_world")
+    np.testing.assert_array_equal(TSH.V_TO_SH.numpy(), np.asarray(JSH.V_TO_SH))
+    np.testing.assert_array_equal(TSH.SH_TO_V.numpy(), np.asarray(JSH.SH_TO_V))
+
+
+def _rotations(rng):
+    """(R (n, 3, 3), branch (n,)): rotations that take each of the four
+    cases of rotmat_to_quat.  1 + trace = 2 + 2 cos(angle) is positive for
+    every turn short of 180 degrees (case 0); the 180-degree turns about
+    x, y and z and about axes tilted from them take cases 1-3 (m00, m11,
+    m22 dominant)."""
+    qs = [[1, 0.1, -0.2, 0.05], [1, -0.3, 0.2, 0.1],
+          [0, 1, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]]
+    for axis in np.eye(3):
+        a = axis + 0.2 * rng.normal(size=3)
+        qs.append([0.0, *(a / np.linalg.norm(a))])
+    q = np.asarray(qs, np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    R = np.array(JQ.quat_to_rotmat(q), np.float32)
+    return R, np.array([0, 0, 1, 2, 3, 1, 2, 3])
+
+
+def test_rotmat_to_quat_matches_jax():
+    """core/quaternions.py:rotmat_to_quat against the JAX package's on
+    rotations that take each of its four branches (checked), 180-degree
+    turns included: values at 1e-5, and the gradient of a seeded weighted
+    sum to the matrix at 5e-3 x max |g|."""
+    R, branch = _rotations(np.random.default_rng(32))
+    tr = 1.0 + R[:, 0, 0] + R[:, 1, 1] + R[:, 2, 2]
+    took = np.where(tr > 0, 0, np.where(
+        (R[:, 0, 0] > R[:, 1, 1]) & (R[:, 0, 0] > R[:, 2, 2]), 1,
+        np.where(R[:, 1, 1] > R[:, 2, 2], 2, 3)))
+    np.testing.assert_array_equal(took, branch)
+    w = np.random.default_rng(33).normal(size=(len(R), 4)).astype(np.float32)
+    want = np.asarray(JQ.rotmat_to_quat(jnp.asarray(R)))
+    gj = jax.grad(lambda m: jnp.sum(JQ.rotmat_to_quat(m) * w))(jnp.asarray(R))
+    rt = torch.from_numpy(R).requires_grad_()
+    got = TQ.rotmat_to_quat(rt)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got.detach().numpy(), Tcam.rotmat_to_quat(R),
+                               rtol=0, atol=1e-6)
+    (got * torch.from_numpy(w)).sum().backward()
+    _grad_close(rt.grad.numpy(), gj, "d m")

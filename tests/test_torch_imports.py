@@ -139,6 +139,90 @@ def test_raster_kernels_take_the_band_row_offset():
     assert "const int iy = ty * kBlock + pix / kBlock;" in bwd
 
 
+# module-level public names of the JAX package that the port leaves out by
+# design, each named in its port module's docstring
+NOT_PORTED = {
+    "models/clip.py": {"init_params", "convert_torch_clip_visual"},
+    "models/layers.py": {"conv2d", "conv_init", "group_norm", "groupnorm_init",
+                         "linear", "linear_init"},
+    "models/predictor.py": {"init_params", "apply"},
+    "models/songunet.py": {"init_params", "apply"},
+    "models/vgg.py": {"init_params"},
+    "parallel/sharded.py": {"overlap_flags"},
+}
+# JAX modules with no port module of their own: the Pallas kernels (K1/K2
+# in csrc/) and the numpy oracle the tests import from JAX
+NO_PORT_MODULE = {"ops/pallas_raster.py", "ops/rasterize_ref.py"}
+
+
+def _public_names(path):
+    import ast
+    tree = ast.parse(path.read_text())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [
+                node.target]
+            names |= {t.id for t in targets if isinstance(t, ast.Name)}
+    return {n for n in names if not n.startswith("_")}, ast.get_docstring(tree)
+
+
+def test_public_names_match_the_jax_package():
+    """Every module-level public name of f3d_gaus_tpu is defined in the
+    port's module of the same path, but the NOT_PORTED ones, which that
+    module's docstring names."""
+    import pathlib
+    jax_root = pathlib.Path(ROOT) / "f3d_gaus_tpu"
+    port_root = pathlib.Path(ROOT) / "f3d_gaus_torch"
+    missing, no_module = {}, set()
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = path.relative_to(jax_root).as_posix()
+        port = port_root / rel
+        if not port.exists():
+            no_module.add(rel)
+            continue
+        (want, _), (have, doc) = _public_names(path), _public_names(port)
+        if want - have:
+            missing[rel] = want - have
+        for name in NOT_PORTED.get(rel, ()):
+            assert f"`{name}`" in doc, (rel, name)
+    assert no_module == NO_PORT_MODULE
+    assert missing == NOT_PORTED
+
+
+def test_arguments_the_port_takes_or_names():
+    """run_nvs takes check_overflow and convert_checkpoint a config, as
+    the JAX functions do; the two JAX arguments the port leaves out are
+    named in their modules' docstrings."""
+    import inspect
+    from f3d_gaus_torch.models import convert
+    from f3d_gaus_torch.ops import integrate
+    assert inspect.signature(Tcycle.run_nvs).parameters[
+        "check_overflow"].default is True
+    assert list(inspect.signature(convert.convert_checkpoint).parameters) == [
+        "path", "cfg"]
+    assert "net_name" in inspect.signature(convert.convert_predictor).parameters
+    assert "`integrate_points` has no `bg`" in " ".join(
+        integrate.__doc__.split())
+    assert "`train_step` takes no `lr`" in " ".join(TF.__doc__.split())
+
+
+def test_new_public_names():
+    from f3d_gaus_torch.core import device, quaternions, sh
+    from f3d_gaus_torch.ops import binning
+    assert binning.INT32_MAX == np.iinfo(np.int32).max
+    assert sh.SH_TO_V.shape == sh.V_TO_SH.shape == (3, 3)
+    assert torch.equal(sh.SH_TO_V @ sh.V_TO_SH, torch.eye(3))
+    assert TP.transform_shs_deg1 is sh.transform_shs_deg1
+    x = torch.tensor([-2.0, 0.0, 3.0], requires_grad=True)
+    device.abs_tie(x).sum().backward()
+    assert x.grad.tolist() == [-1.0, 1.0, 1.0]
+    q = quaternions.rotmat_to_quat(torch.eye(3))
+    assert q.tolist() == [1.0, 0.0, 0.0, 0.0]
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -130,6 +130,45 @@ def test_run_nvs_replanned_doubles_caps():
     assert res.merged["xyz"].shape == (1, 2 * 32 * 32, 3)
 
 
+def test_run_nvs_check_overflow():
+    """At deliberately tiny caps (tests/test_pipeline.py:67-71, :106) every
+    render truncates: run_nvs(check_overflow=False) returns renders of the
+    shapes JAX's returns, each truncation flagged in its `overflow` map as
+    in JAX's, and raises nothing; with True (the default) it raises
+    RenderOverflow, as JAX's does."""
+    tiny = dict(SMALL, pair_cap=1 << 8, max_per_tile=32, chunk=32)
+    jcfg, tcfg = JC.PipelineConfig(**tiny), TCfg.PipelineConfig(**tiny)
+    model = TP.GaussianPredictor(tcfg.predictor_config(),
+                                 torch.Generator().manual_seed(0))
+    sd = {"gaussian_predictor.network_with_offset." + k: v
+          for k, v in model.state_dict().items()}
+    params = jax.tree_util.tree_map(
+        jnp.asarray, JConv.convert_predictor(sd, JP.make_plan(
+            jcfg.predictor_config())))
+    cams = TD.canonical_cameras(tcfg)
+    images, depth = _inputs(2)
+    mj, rj, aj = Jcycle.run_nvs(params, jcfg, cams, images, depth,
+                                check_overflow=False)
+    mt, rt, at = Tcycle.run_nvs(model, tcfg, cams, images, depth,
+                                check_overflow=False, device="cpu")
+    for want, got in ((mj, mt), (rj, rt), (aj, at)):
+        assert set(got) == set(want)
+        for k in want:
+            assert tuple(got[k].shape) == tuple(want[k].shape), k
+            assert torch.isfinite(got[k].float()).all(), k
+    n_nvs = tcfg.num_nvs_views + 1
+    assert rt["render"].shape == (1, n_nvs, 3, 32, 32)
+    assert mt["xyz"].shape == (1, (tcfg.num_aggregation_views + 1) * 32 * 32,
+                               3)
+    assert rt["overflow"].all() and at["overflow"].all()
+    np.testing.assert_array_equal(rt["overflow"].numpy(), rj["overflow"])
+    np.testing.assert_array_equal(at["overflow"].numpy(), aj["overflow"])
+    with pytest.raises(Trenderer.RenderOverflow):
+        Tcycle.run_nvs(model, tcfg, cams, images, depth, device="cpu")
+    with pytest.raises(Jrenderer.RenderOverflow):
+        Jcycle.run_nvs(params, jcfg, cams, images, depth)
+
+
 def test_cli_smoke_cpu(tmp_path, monkeypatch):
     """The CLI on the CPU at 32^2: NVS videos, the Gaussian PLY and, without
     --skip_mesh, the mesh: empty at the random init, and with faces from

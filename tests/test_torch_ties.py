@@ -18,6 +18,13 @@ Gaussian on each pixel-centre ray, as the predictor lays them out, where
 num is exactly 0 on many pairs) are held at the JAX package's gradient
 tolerance, 5e-3 x max|g|: their towers and compositing orders differ by
 more than TIE_TOL (tests/test_torch_clip.py, test_torch_rasterize_grad.py).
+
+|x| at x = 0: jnp.abs passes +g there (-0.0 included), torch.abs 0; the
+port's |x| on a differentiable path is core/device.py:abs_tie, held here
+against jax.grad(jnp.abs) and, at exact ties, through l1, tv, masked_l1,
+the perceptual loss and the distortion term's form.  The norm at the zero
+vector is the one known difference kept: torch.linalg.norm's gradient is
+0 there, jnp.linalg.norm's NaN.
 """
 import jax
 import jax.numpy as jnp
@@ -29,15 +36,22 @@ from f3d_gaus_tpu.core import gaussians as JG
 from f3d_gaus_tpu.core import quaternions as JQ
 from f3d_gaus_tpu.core import sh as JSH
 from f3d_gaus_tpu.models import clip as JC
+from f3d_gaus_tpu.models import vgg as JV
 from f3d_gaus_tpu.ops import rasterize as JR
+from f3d_gaus_tpu.train import losses as JL
+from f3d_gaus_tpu.train import per_scene as JPS
 from f3d_gaus_torch.core import cameras as Tcam
 from f3d_gaus_torch.core import gaussians as TG
 from f3d_gaus_torch.core import quaternions as TQ
 from f3d_gaus_torch.core import sh as TSH
-from f3d_gaus_torch.core.device import clip_tie
+from f3d_gaus_torch.core.device import abs_tie, clip_tie
 from f3d_gaus_torch.models import clip as TC
+from f3d_gaus_torch.models import convert as TConv
+from f3d_gaus_torch.models import vgg as TV
 from f3d_gaus_torch.ops import cuda_raster
 from f3d_gaus_torch.ops import rasterize as TR
+from f3d_gaus_torch.train import losses as TL
+from f3d_gaus_torch.train import per_scene as TPS
 import torch_cases  # tests/ is on sys.path under pytest (rootdir-less dir)
 
 # the suite runs in several xdist workers on one CPU: torch's intra-op
@@ -354,3 +368,175 @@ def test_clip_term_gradient_at_saturated_pixels(clip_towers):
         grads.append(xt.grad.numpy())
     _close(grads[0], want, GRAD_TOL, "clip_tie")
     assert np.abs(grads[1] - want).max() > 10 * GRAD_TOL * np.abs(want).max()
+
+
+# --- |x| at x = 0 (abs_tie) ---------------------------------------------
+
+def test_abs_tie_gradient_is_jax_abs():
+    """abs_tie's gradient at (-1, -0.0, 0.0, 2) is jax.grad(jnp.abs)'s,
+    exactly: (-1, 1, 1, 1); torch.abs gives (-1, 0, 0, 1).  Its value is
+    |x|, +0.0 at -0.0 as jnp.abs."""
+    x = np.array([-1.0, -0.0, 0.0, 2.0], np.float32)
+    want = np.asarray(jax.vmap(jax.grad(jnp.abs))(jnp.asarray(x)))
+    np.testing.assert_array_equal(want, [-1.0, 1.0, 1.0, 1.0])
+    t = torch.from_numpy(x).requires_grad_()
+    y = abs_tie(t)
+    y.sum().backward()
+    np.testing.assert_array_equal(t.grad.numpy(), want)
+    np.testing.assert_array_equal(y.detach().numpy(), np.abs(x))
+    assert not np.signbit(y.detach().numpy()).any()
+
+
+def _loss_at_ties(name, rng):
+    """(JAX loss, port loss, inputs) with every argument of |.| or a known
+    share of them exactly 0."""
+    if name == "l1":
+        a = rng.uniform(size=(2, 3, 8, 8)).astype(np.float32)
+        return JL.l1, TL.l1, (a, a.copy())
+    if name == "tv":           # two flat halves: only the seam is not a tie
+        x = np.zeros((4, 4), np.float32)
+        x[:, 2:] = 1.5
+        return JL.tv, TL.tv, (x,)
+    a = rng.uniform(size=(2, 3, 8, 8)).astype(np.float32)
+    mask = rng.uniform(size=(2, 1, 8, 8)) < 0.5
+    return (lambda p, q: JL.masked_l1(p, q, jnp.asarray(mask)),
+            lambda p, q: TL.masked_l1(p, q, torch.from_numpy(mask)),
+            (a, a.copy()))
+
+
+@pytest.mark.parametrize("name", ["l1", "tv", "masked_l1"])
+def test_loss_gradient_at_abs_ties(name):
+    """The losses of train/losses.py where |a - b| is exactly 0: the
+    gradient to every input against JAX's at TIE_TOL (absolute; each is
+    +-1/N or a mask share).  With torch.abs l1(a, a)'s gradient is 0
+    where JAX's is 1/384; tv's of a 4x4 map with two flat halves misses by
+    up to 1/6 at the corners; masked_l1(a, a, mask)'s is 0 where JAX's is
+    mask/sum(mask)."""
+    jloss, tloss, inputs = _loss_at_ties(name, np.random.default_rng(21))
+    want = jax.grad(jloss, argnums=tuple(range(len(inputs))))(
+        *[jnp.asarray(a) for a in inputs])
+    ts = [torch.from_numpy(a).requires_grad_() for a in inputs]
+    tloss(*ts).backward()
+    for i, (t, w) in enumerate(zip(ts, want)):
+        w = np.asarray(w)
+        assert np.abs(w).max() > 0, f"{name}: input {i}"
+        np.testing.assert_allclose(t.grad.numpy(), w, rtol=0, atol=TIE_TOL,
+                                   err_msg=f"{name}: input {i}")
+
+
+def test_perceptual_gradient_at_equal_images():
+    """vgg.perceptual_loss(x, x) through the VGG16 tower with seeded weights
+    (the JAX package's init_params, carried by convert.vgg_from_jax) at
+    32^2: every tap difference is 0, and on the taps whose pre-ReLU value
+    is positive JAX passes +1/N.  The gradient to x against JAX's at
+    GRAD_TOL x max|g|; with torch.abs it is 0."""
+    jparams = JV.init_params(jax.random.PRNGKey(3))
+    vgg = TV.VGG16(torch.Generator())
+    vgg.load_state_dict(TConv.vgg_from_jax(jparams))
+    vgg.eval().requires_grad_(False)
+    x = np.random.default_rng(22).uniform(size=(1, 3, 32, 32)).astype(
+        np.float32)
+    want = jax.grad(lambda a: JV.perceptual_loss(jparams, a, jnp.asarray(x)))(
+        jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    TV.perceptual_loss(vgg, xt, torch.from_numpy(x)).backward()
+    _close(xt.grad.numpy(), want, GRAD_TOL, "d x")
+
+
+def test_distortion_term_gradient_with_one_contributor_pixels():
+    """The distortion term's form, |distortion_map|.mean() (feedforward.py
+    loss_fn), of a 32^2 render of 24 Gaussians at spread depths: about a
+    third of the covered pixels have one contributor and a distortion of
+    exactly 0.  Its gradient to the five inputs against JAX's render
+    (backend="xla") at GRAD_TOL x max|g|.
+
+    This case passes with torch.abs too: the distortion is
+    sum w_i w_j (m_i - m_j)^2 >= 0, so where it is 0 its Jacobian is 0 but
+    for rounding, and abs_tie adds only that residue of the backward's
+    m (1 - T_final) - dist1.  The map is ill-conditioned in f32 (values
+    about 1e-5 from differences of terms about 1): on the 96-Gaussian
+    parity scenes of torch_cases.setup the two packages' gradients of this
+    term alone miss GRAD_TOL x max|g|, with torch.abs or abs_tie alike
+    (ROADMAP)."""
+    rng = np.random.default_rng(0)
+    cam = torch_cases.orbit_camera(32, 32)
+    cloud = torch_cases.make_gaussian_cloud(rng, 24, spread=0.8,
+                                            scale_range=(0.05, 0.15))
+    cloud[0][:, :2] *= 0.3
+    kw = dict(pair_cap=1 << 13, max_per_tile=512, chunk=32)
+    bg = np.zeros(3, np.float32)
+
+    def jloss(*a):
+        out = JR.render(*a, cam, jnp.asarray(bg), backend="xla", **kw)
+        return jnp.abs(out["distortion_map"]).mean()
+    want = jax.grad(jloss, argnums=tuple(range(5)))(
+        *[jnp.asarray(a) for a in cloud])
+    ts = [torch.from_numpy(a).requires_grad_() for a in cloud]
+    out = TR.render(*ts, cam, torch.from_numpy(bg), **kw)
+    assert not bool(out["overflow"])
+    dist = out["distortion_map"].detach()
+    covered = out["rendered_alpha"].detach() > 0
+    assert int((covered & (dist == 0)).sum()) > 0.2 * int(covered.sum())
+    abs_tie(out["distortion_map"]).mean().backward()
+    for name, t, r in zip(("means", "scales", "quats"), ts, want):
+        _close(t.grad.numpy(), r, GRAD_TOL, name)
+    for t, r in zip(ts[3:], want[3:]):     # no path from opacity or colour
+        assert not t.grad.abs().any() and not np.abs(np.asarray(r)).any()
+
+
+# --- the norm at the zero vector ------------------------------------------
+
+def _site_norm(site):
+    """(port, JAX) functions of a (2, k) array whose row 0 is the zero
+    vector: the site's normalisation with its torch.linalg.norm /
+    jnp.linalg.norm call, and k."""
+    if site == "quaternions.py:quat_normalize":
+        return (lambda q: TQ.quat_normalize(q, 1e-8),
+                lambda q: JQ.quat_normalize(q, 1e-8), 4)
+    if site == "per_scene.py:activated":
+        def scene(mod, rot, xp):
+            z = xp.zeros((2, 3), dtype=xp.float32)
+            rest = xp.zeros((2, 0, 3), dtype=xp.float32)
+            return mod.SceneParams(z, z[:, None], rest, z[:, :1], z, rot, None)
+        return (lambda q: TPS.activated(scene(TPS, q, torch))["rotation"],
+                lambda q: JPS.activated(scene(JPS, q, jnp))["rotation"], 4)
+    k = 4 if site == "predictor.py:forward" else 512
+    return (lambda x: x / torch.linalg.norm(x, dim=-1, keepdim=True),
+            lambda x: x / jnp.linalg.norm(x, axis=-1, keepdims=True), k)
+
+
+@pytest.mark.parametrize("site", ["predictor.py:forward", "clip.py:encode_image",
+                                  "quaternions.py:quat_normalize",
+                                  "per_scene.py:activated"])
+def test_norm_gradient_at_the_zero_vector(site):
+    """Kept, not repaired: torch.linalg.norm's gradient at the zero vector
+    is 0 where jnp.linalg.norm's is NaN; copying a NaN helps nobody.  At
+    each site of the norm the norm's own gradient there is 0 in the port
+    and NaN in JAX.  Where the site stays finite at the zero vector
+    (quat_normalize with an eps, per_scene's +1e-12) so does the port's
+    gradient of it, while JAX's is NaN; the predictor's rotation and the
+    CLIP embedding divide 0 by 0 in both packages.  On a nonzero row the
+    two agree to 1e-5."""
+    port, jfn, k = _site_norm(site)
+    rng = np.random.default_rng(23)
+    x = np.zeros((2, k), np.float32)
+    x[1] = rng.normal(size=k)
+    w = rng.normal(size=(2, k)).astype(np.float32)
+
+    jn = jax.grad(lambda a: jnp.sum(jnp.linalg.norm(a, axis=-1)))(
+        jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    torch.linalg.norm(xt, dim=-1, keepdim=True).sum().backward()
+    assert np.isnan(np.asarray(jn)[0]).all()
+    assert not xt.grad[0].any()
+
+    want = np.asarray(jax.grad(lambda a: jnp.sum(jfn(a) * w))(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_()
+    (port(xt) * torch.from_numpy(w)).sum().backward()
+    got = xt.grad.numpy()
+    assert np.isnan(want[0]).all()
+    finite_site = site in ("quaternions.py:quat_normalize",
+                           "per_scene.py:activated")
+    assert np.isfinite(got[0]).all() == finite_site
+    np.testing.assert_allclose(got[1], want[1], rtol=0,
+                               atol=1e-5 * np.abs(want[1]).max())
