@@ -1,0 +1,7 @@
+"""Share of the profiled iterations of the fit in which no device operation
+ran."""
+from benchmark.readers import device_idle_pct
+
+
+def read(run):
+    return device_idle_pct(run)

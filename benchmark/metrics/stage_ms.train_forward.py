@@ -1,0 +1,7 @@
+"""Milliseconds of train_step's forward (loss_fn) per step
+(train_step(timings=), traced run)."""
+from benchmark.readers import mean_stage_ms
+
+
+def read(run):
+    return mean_stage_ms(run, "step_s", "forward")
