@@ -1274,19 +1274,26 @@ def prepared(g, cam, cfg, b=0, tile_rows=None):
     return gauss_render(g, cam, cfg, b).inp(tile_rows)
 
 
+def launch_counts():
+    """(K1, K2, decision pass, field query) launches counted since the
+    program's profiling.record() began (its `launches.*` counters)."""
+    from f3d_gaus_torch.utils import profiling
+    c = profiling.snapshot()["counters"]
+    return tuple(c.get(f"launches.{k}", 0)
+                 for k in ("fwd", "bwd", "decide", "integrate"))
+
+
 def counted(fn, k1=0, k2=0, decide=0):
-    """fn() with the launch counts set to 0 just before it, required to
+    """fn() counted by the program's profiling.record(), required to
     launch K1's compositing pass k1 times, K2's backward pass k2 times and
     the decision pass `decide` times."""
     import torch
-    from f3d_gaus_torch.ops import cuda_raster
+    from f3d_gaus_torch.utils import profiling
 
-    cuda_raster.launches = cuda_raster.launches_bwd = 0
-    cuda_raster.launches_decide = 0
-    out = fn()
-    torch.cuda.synchronize()
-    got = (cuda_raster.launches, cuda_raster.launches_bwd,
-           cuda_raster.launches_decide)
+    with profiling.record():
+        out = fn()
+        torch.cuda.synchronize()
+        got = launch_counts()[:3]
     require(got == (k1, k2, decide),
             f"launches K1 / K2 / decision {got}, expected {(k1, k2, decide)}")
     return out
@@ -1576,16 +1583,16 @@ def kernels_vs_plain(dev, seed):
 
 
 def serving_path(args, dev, card):
-    """Phases 3 and 4: run_nvs_replanned at full width with the launch
-    counts set to 0 just before it, then K1's timing at its shapes."""
+    """Phases 3 and 4: run_nvs_replanned at full width, its launches
+    counted inside profiling.record(), then K1's timing at its shapes."""
     import numpy as np
     import torch
     from f3d_gaus_torch.core.cameras import Camera
     from f3d_gaus_torch.models import predictor as P
-    from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.pipeline import config as C
     from f3d_gaus_torch.pipeline import cycle
     from f3d_gaus_torch.pipeline import dataset as D
+    from f3d_gaus_torch.utils import profiling
 
     cfg = dataclasses.replace(C.PipelineConfig(),
                               num_nvs_views=args.num_nvs_views)
@@ -1599,16 +1606,14 @@ def serving_path(args, dev, card):
     timings = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cuda_raster.launches = cuda_raster.launches_bwd = 0
-    cuda_raster.launches_decide = 0
     t0 = time.perf_counter()
-    res = cycle.run_nvs_replanned(model, cfg, cams, images, depth,
-                                  device=dev, log=replans.append,
-                                  timings=timings)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches, launches_bwd = cuda_raster.launches, cuda_raster.launches_bwd
-    launches_decide = cuda_raster.launches_decide
+    with profiling.record():
+        res = cycle.run_nvs_replanned(model, cfg, cams, images, depth,
+                                      device=dev, log=replans.append,
+                                      timings=timings)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches, launches_bwd, launches_decide, _ = launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     P_px = cfg.resolution ** 2
@@ -1946,17 +1951,17 @@ def abs_ties_scene(scene, cam, target, cfg, sh_degree):
 
 
 def training_path(args, dev, card):
-    """Phases 7 and 8: feedforward.train_step at full width with the launch
-    counts set to 0 just before the steps, then K2's timing at the
+    """Phases 7 and 8: feedforward.train_step at full width, the steps'
+    launches counted inside profiling.record(), then K2's timing at the
     canonical and cycle renders of the trained weights."""
     import numpy as np
     import torch
     from f3d_gaus_torch.core.cameras import Camera
-    from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.pipeline import config as C
     from f3d_gaus_torch.pipeline import dataset as D
     from f3d_gaus_torch.pipeline import cycle, renderer
     from f3d_gaus_torch.train import feedforward as F
+    from f3d_gaus_torch.utils import profiling
 
     cfg, B = C.PipelineConfig(), TRAIN_BATCH
     state = F.init_state(torch.Generator().manual_seed(args.seed), cfg,
@@ -1976,41 +1981,40 @@ def training_path(args, dev, card):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cuda_raster.launches = cuda_raster.launches_bwd = 0
-    cuda_raster.launches_decide = 0
-    t_start = time.perf_counter()
-    while len(steps) < TRAIN_STEPS:
-        f0, b0 = cuda_raster.launches, cuda_raster.launches_bwd
-        d0 = cuda_raster.launches_decide
-        timings = {}
-        t0 = time.perf_counter()
-        try:
-            loss, aux = F.train_step(state, cfg, batch, pack, weights,
-                                     timings=timings, towers=towers)
-        except renderer.RenderOverflow as e:
-            require(len(attempts) < cycle.MAX_DOUBLINGS, "caps keep overflowing")
-            cfg = dataclasses.replace(cfg, pair_cap=cfg.pair_cap * 2,
-                                      max_per_tile=cfg.max_per_tile * 2)
-            attempts.append(f"step {state.step}: {e}; caps now "
-                            f"{cfg.pair_cap} / {cfg.max_per_tile}")
-            continue
+    with profiling.record():
+        t_start = time.perf_counter()
+        while len(steps) < TRAIN_STEPS:
+            f0, b0, d0, _ = launch_counts()
+            timings = {}
+            t0 = time.perf_counter()
+            try:
+                loss, aux = F.train_step(state, cfg, batch, pack, weights,
+                                         timings=timings, towers=towers)
+            except renderer.RenderOverflow as e:
+                require(len(attempts) < cycle.MAX_DOUBLINGS,
+                        "caps keep overflowing")
+                cfg = dataclasses.replace(cfg, pair_cap=cfg.pair_cap * 2,
+                                          max_per_tile=cfg.max_per_tile * 2)
+                attempts.append(f"step {state.step}: {e}; caps now "
+                                f"{cfg.pair_cap} / {cfg.max_per_tile}")
+                continue
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            terms = {k: v.item() for k, v in aux.items() if k != "overflow"}
+            require(all(np.isfinite(v) for v in terms.values())
+                    and np.isfinite(loss.item())
+                    and {"loss_perceptual", "loss_clip"} <= set(terms), terms)
+            require(not bool(aux["overflow"].any()),
+                    "overflow in an applied step")
+            k1, k2, kd, _ = launch_counts()
+            k1, k2, kd = k1 - f0, k2 - b0, kd - d0
+            require(k1 == k2 == 3 * B and kd == 6 * B,
+                    f"step launches K1 {k1}, K2 {k2}, decision {kd}, B {B}")
+            steps.append({"loss": loss.item(), **terms, "wall_s": wall,
+                          **{f"{k}_s": v for k, v in timings.items()}})
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        terms = {k: v.item() for k, v in aux.items() if k != "overflow"}
-        require(all(np.isfinite(v) for v in terms.values())
-                and np.isfinite(loss.item())
-                and {"loss_perceptual", "loss_clip"} <= set(terms), terms)
-        require(not bool(aux["overflow"].any()), "overflow in an applied step")
-        k1, k2 = cuda_raster.launches - f0, cuda_raster.launches_bwd - b0
-        kd = cuda_raster.launches_decide - d0
-        require(k1 == k2 == 3 * B and kd == 6 * B,
-                f"step launches K1 {k1}, K2 {k2}, decision {kd}, B {B}")
-        steps.append({"loss": loss.item(), **terms, "wall_s": wall,
-                      **{f"{k}_s": v for k, v in timings.items()}})
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t_start
-    launches = (cuda_raster.launches, cuda_raster.launches_bwd,
-                cuda_raster.launches_decide)
+        total_s = time.perf_counter() - t_start
+        launches = launch_counts()[:3]
     peak = torch.cuda.max_memory_allocated()
     require(launches == (3 * B * (len(steps) + len(attempts)),
                          3 * B * len(steps),
@@ -2271,12 +2275,12 @@ def integrate_vs_plain(dev, seed):
     import numpy as np
     import torch
     from f3d_gaus_torch.mesh import points as MP
-    from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.ops import integrate as TI
     from f3d_gaus_torch.ops import rasterize as R
     from f3d_gaus_torch.pipeline import config as C
     from f3d_gaus_torch.pipeline import cycle
     from f3d_gaus_torch.pipeline import dataset as D
+    from f3d_gaus_torch.utils import profiling
     import torch_cases
 
     orbit = torch_cases.orbit_views(3)
@@ -2286,11 +2290,11 @@ def integrate_vs_plain(dev, seed):
     worst = 0.0
     for name, cam, cloud, pts, kw in torch_cases.integrate_cases(seed):
         tc, tp = cloud_to(cloud, dev), torch.from_numpy(pts).to(dev)
-        n0 = cuda_raster.launches_integrate
-        k = TI.integrate_points(*tc, cam, tp, **kw)["alpha_integrated"]
-        km = TI.integrate_min_alpha(*tc, *views, tp, **size, **kw)
-        torch.cuda.synchronize()
-        n = cuda_raster.launches_integrate - n0
+        with profiling.record():
+            k = TI.integrate_points(*tc, cam, tp, **kw)["alpha_integrated"]
+            km = TI.integrate_min_alpha(*tc, *views, tp, **size, **kw)
+            torch.cuda.synchronize()
+            n = launch_counts()[3]
         p = TI.integrate_points(*tc, cam, tp, backend="torch",
                                 **kw)["alpha_integrated"]
         pm = TI.integrate_min_alpha(*tc, *views, tp, backend="torch", **size,
@@ -2415,9 +2419,10 @@ def write_rgbd(folder, image, depth):
 def mesh_path(args, dev, card):
     """Phase 5: cli.main without --skip_mesh at PipelineConfig() width on one
     numpy-made RGB-D image written as PNGs, with the raised-opacity
-    weights, the launch counts and integrate's overflow count set to 0
-    just before it.  Requires a non-empty mesh that reads back, no
-    truncated view and 129 x (1 + 8) field-query launches."""
+    weights, its launches counted inside profiling.record() and
+    integrate's overflow count set to 0 just before it.  Requires a
+    non-empty mesh that reads back, no truncated view and 129 x (1 + 8)
+    field-query launches."""
     import contextlib
     import io
     import shutil
@@ -2425,9 +2430,9 @@ def mesh_path(args, dev, card):
     import torch
     from f3d_gaus_torch import cli
     from f3d_gaus_torch.io import ply
-    from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.ops import integrate as TI
     from f3d_gaus_torch.pipeline import config as C
+    from f3d_gaus_torch.utils import profiling
     import torch_cases
 
     cfg = C.PipelineConfig()
@@ -2444,19 +2449,16 @@ def mesh_path(args, dev, card):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cuda_raster.launches = cuda_raster.launches_bwd = 0
-    cuda_raster.launches_decide = cuda_raster.launches_integrate = 0
     TI.overflow_views = 0
     log = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(log):
+    with profiling.record(), contextlib.redirect_stdout(log):
         rc = cli.main(argv)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = {"integrate": cuda_raster.launches_integrate,
-                "raster_fwd": cuda_raster.launches,
-                "gof_decide": cuda_raster.launches_decide,
-                "raster_bwd": cuda_raster.launches_bwd}
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        n = launch_counts()
+    launches = {"integrate": n[3], "raster_fwd": n[0], "gof_decide": n[2],
+                "raster_bwd": n[1]}
     overflow_views = TI.overflow_views
     peak = torch.cuda.max_memory_allocated()
     lines = log.getvalue().splitlines()
@@ -3015,7 +3017,7 @@ def step_trace(step, logdir, n_steps=SCENE_TIMED_STEPS):
 def scene_path(args, dev, card):
     """Phase 9: full_eval.full_eval on a synthetic NeRF-synthetic-shaped
     scene at PerSceneConfig() with args.scene_iterations and planned caps,
-    the launch counts set to 0 just before it; then the fitted scene's
+    its launches counted inside profiling.record(); then the fitted scene's
     step split, the init scene's PSNR on the test views, and K1 / K2 /
     the decision pass against their plain versions at the fitted scene
     and one training camera."""
@@ -3025,10 +3027,10 @@ def scene_path(args, dev, card):
     from f3d_gaus_torch import eval as EV
     from f3d_gaus_torch import full_eval as FE
     from f3d_gaus_torch.models import vgg as VG
-    from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.ops import knn
     from f3d_gaus_torch.pipeline import scene_io
     from f3d_gaus_torch.train import per_scene as PS
+    from f3d_gaus_torch.utils import profiling
 
     require(args.scene_iterations >= SCENE_MIN_ITERS,
             f"--scene_iterations below {SCENE_MIN_ITERS}")
@@ -3072,19 +3074,18 @@ def scene_path(args, dev, card):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cuda_raster.launches = cuda_raster.launches_bwd = 0
-    cuda_raster.launches_decide = 0
     PS.fit_scene = fit_and_keep
     t0 = time.perf_counter()
     try:
-        agg = FE.full_eval([root], out, cfg=cfg, n_init_points=SCENE_INIT,
-                           lpips_weights=vgg_pt, device=dev)
+        with profiling.record():
+            agg = FE.full_eval([root], out, cfg=cfg,
+                               n_init_points=SCENE_INIT,
+                               lpips_weights=vgg_pt, device=dev)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = launch_counts()[:3]
     finally:
         PS.fit_scene = fit
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = (cuda_raster.launches, cuda_raster.launches_bwd,
-                cuda_raster.launches_decide)
     peak = torch.cuda.max_memory_allocated()
     scene, hist, timings = fits[0]
     summary = agg["scenes"][0]

@@ -1,7 +1,5 @@
-"""Device selection and stage timing shared by the port's entry points."""
+"""Device selection and the gradient ties shared by the port's modules."""
 from __future__ import annotations
-
-import time
 
 import torch
 
@@ -73,52 +71,3 @@ def abs_tie(x: torch.Tensor) -> torch.Tensor:
     -x) has the same gradient but takes three forward and about four
     backward, and gives -0.0 at -0.0."""
     return _AbsTie.apply(x)
-
-
-class StageClock:
-    """Wall seconds per stage into `timings` (a dict), synchronising the
-    card at each lap; does nothing when `timings` is None."""
-
-    def __init__(self, device, timings):
-        self.device, self.timings = device, timings
-        self.t = time.perf_counter()
-
-    def lap(self, name):
-        if self.timings is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.timings[name] = now - self.t
-        self.t = now
-
-
-class EventClock:
-    """Milliseconds per stage into `timings` (a dict) from CUDA events
-    recorded between the stages, with no sync until `close`, which waits
-    for the last event (host clock on the CPU); does nothing when
-    `timings` is None."""
-
-    def __init__(self, device, timings):
-        self.device, self.timings = device, timings
-        self.marks = [(None, self._now())] if timings is not None else None
-
-    def _now(self):
-        if self.device.type != "cuda":
-            return time.perf_counter()
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
-
-    def lap(self, name):
-        if self.marks is not None:
-            self.marks.append((name, self._now()))
-
-    def close(self):
-        if self.marks is None:
-            return
-        if self.device.type == "cuda":
-            self.marks[-1][1].synchronize()
-        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
-            self.timings[name] = (a.elapsed_time(b) if self.device.type ==
-                                  "cuda" else (b - a) * 1e3)

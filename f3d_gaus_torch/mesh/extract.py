@@ -19,8 +19,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core.device import StageClock, resolve_device
+from ..core.device import resolve_device
 from ..ops import integrate as I
+from ..utils import profiling
 from . import delaunay as D
 from . import points as MP
 from . import tetra as MT
@@ -55,6 +56,7 @@ def _field_eval(gauss, cams, points, opts) -> np.ndarray:
     return (1.0 - min_alpha.cpu().numpy()) - 0.5
 
 
+@profiling.spanned("mesh")
 def extract_mesh(gauss: dict, cams: dict, *, width: int, height: int,
                  tan_fov: float, fov_deg: float, z_near: float = 0.02,
                  z_far: float = 1e6, method: str = "delaunay",
@@ -74,7 +76,9 @@ def extract_mesh(gauss: dict, cams: dict, *, width: int, height: int,
     timings: a dict to receive each stage's wall seconds (seed_points,
     delaunay or lattice, field, marching_tetrahedra, bisection,
     vertex_colors with `texture`, face_filter); counts: a dict to receive
-    seed_points, tets, crossing_edges, vertices and faces.
+    seed_points, tets, crossing_edges, vertices and faces.  While tracing
+    is on (utils.profiling) the call is a root span `mesh` with a span per
+    stage.
     """
     opts = dict(width=width, height=height, tan_fov=tan_fov, **field_opts)
     x0 = gauss["xyz"]
@@ -83,7 +87,7 @@ def extract_mesh(gauss: dict, cams: dict, *, width: int, height: int,
          for k in GAUSS_KEYS}
     host = {k: g[k].cpu().numpy() for k in ("xyz", "scaling", "rotation")}
     xyz = host["xyz"]
-    clock = StageClock(dev, timings)
+    clock = profiling.StageClock(dev, timings)
     counts = {} if counts is None else counts
 
     if method == "delaunay":

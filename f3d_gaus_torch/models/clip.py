@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.device import resolve_device
+from ..utils import profiling
 
 WIDTH = 768
 HEADS = 12
@@ -137,9 +138,11 @@ class CLIPVisual(nn.Module):
         return encode_image(self, x)
 
 
+@profiling.spanned("clip")
 def encode_image(model: CLIPVisual, x):
     """x: (N, 3, H, W) in [0, 1], H = W = 32 x the tower's grid (224 for
-    the pretrained tower).  Returns L2-normalised (N, 512) embeddings."""
+    the pretrained tower).  Returns L2-normalised (N, 512) embeddings.
+    Span `clip` (utils.profiling): clip_loss calls this, not forward."""
     x = (x - model.mean) / model.std
     h = model.conv1(x)                                   # (N, W, gh, gw)
     N, C = h.shape[:2]

@@ -24,6 +24,7 @@ from torch import nn
 
 from ..core import sh
 from ..core.quaternions import quat_multiply
+from ..utils import profiling
 from . import layers as L
 from . import songunet
 
@@ -117,6 +118,7 @@ class GaussianPredictor(nn.Module):
         self.register_buffer("ray_dirs", torch.from_numpy(ray_dirs_grid(cfg)),
                              persistent=False)
 
+    @profiling.spanned("predictor")
     def forward(self, images, view_to_world, cv2wT_quat, unet_depth):
         """images: (B, N, H, W, 4) NHWC [rgb | ones]; view_to_world:
         (B, N, 4, 4) row-vector camera-to-world; cv2wT_quat: (B, N, 4);
@@ -124,7 +126,8 @@ class GaussianPredictor(nn.Module):
 
         Returns xyz (B, N·P, 3), opacity (B, N·P, 1), scaling (B, N·P, 3),
         rotation (B, N·P, 4), features_dc (B, N·P, 1, 3), features_rest
-        (B, N·P, sh_rest, 3), unet_depth (B, N·P, 1), with P = H·W."""
+        (B, N·P, sh_rest, 3), unet_depth (B, N·P, 1), with P = H·W.
+        Span `predictor` (utils.profiling)."""
         cfg = self.cfg
         B, N, H, W, Cin = images.shape
         n_views_xa = N if cfg.cross_view_attention else 1

@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from ..core.device import abs_tie, resolve_device
+from ..utils import profiling
 
 # channels of the 13 convs, blocks separated by 2x2 maxpools
 VGG16_PLAN = ((64, 64), (128, 128), (256, 256, 256),
@@ -71,8 +72,9 @@ class VGG16(nn.Module):
         self.register_buffer("lpips_std", torch.tensor(_LPIPS_STD)
                              .reshape(1, 3, 1, 1), persistent=False)
 
+    @profiling.spanned("vgg")
     def forward(self, x):
-        """x: (N, 3, H, W) -> the five taps."""
+        """x: (N, 3, H, W) -> the five taps (span `vgg`, utils.profiling)."""
         taps = []
         for i, layer in enumerate(self.features):
             x = layer(x)

@@ -24,6 +24,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import profiling
+
 BLOCK = 16
 ALIGN = 128           # default slab alignment
 # the largest int32: the JAX package's sort key of an invalid pair.  Here a
@@ -78,6 +80,7 @@ def _sortable_depth_key(depths: torch.Tensor, radii: torch.Tensor):
     return dk.contiguous().view(torch.int32)
 
 
+@profiling.spanned("binning")
 def bin_gaussians(means2d: torch.Tensor, radii: torch.Tensor,
                   depths: torch.Tensor, width: int, height: int,
                   pair_cap: int, max_per_tile: int | None = None,
@@ -86,7 +89,10 @@ def bin_gaussians(means2d: torch.Tensor, radii: torch.Tensor,
 
     means2d: (P, 2) pixel coords; radii: (P,) int32 (0 = culled); depths:
     (P,) view z.  max_per_tile: pairs past the first max_per_tile of a tile
-    are dropped from the slab (tile_count stays unclamped)."""
+    are dropped from the slab (tile_count stays unclamped).  While tracing
+    is on (utils.profiling) the call is span `binning` and counts the
+    slots it walks (`binning.slots`, pair_cap) and the pairs it bins
+    (`binning.pairs`, num_pairs, summed on the device only when read)."""
     means2d, radii, depths = means2d.detach(), radii.detach(), depths.detach()
     dev = means2d.device
     i32, i64 = torch.int32, torch.int64
@@ -138,10 +144,12 @@ def bin_gaussians(means2d: torch.Tensor, radii: torch.Tensor,
     slab[pos] = gid_s.to(i32)
     slab = slab[:NPAD]
 
+    num_pairs = torch.clamp_max(total, pair_cap).to(i32)
+    profiling.count("binning.slots", pair_cap)
+    profiling.count("binning.pairs", num_pairs)
     return Binning(point_list=slab, pair_valid=slab < P,
                    tile_start=aligned_start.to(i32),
-                   tile_count=tile_count.to(i32),
-                   num_pairs=torch.clamp_max(total, pair_cap).to(i32),
+                   tile_count=tile_count.to(i32), num_pairs=num_pairs,
                    overflow=overflow, grid=(grid_x, grid_y))
 
 

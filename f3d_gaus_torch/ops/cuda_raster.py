@@ -21,8 +21,8 @@ integrate.py picks between it and its plain version (_alpha_impl).
 A band of a frame (rasterize.render(tile_rows=...)) launches the same
 kernels with the statics' row_off, the global tile row of the band's
 first row; the rays keep the full frame's half width and height.
-`launches_decide`, `launches`, `launches_bwd` and `launches_integrate`
-count the launches of the four kernels.
+While tracing is on (utils.profiling) each launch counts under
+`launches.decide`, `launches.fwd`, `launches.bwd` or `launches.integrate`.
 """
 from __future__ import annotations
 
@@ -35,6 +35,7 @@ from pathlib import Path
 
 import torch
 
+from ..utils import profiling
 from . import rasterize as R
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -48,10 +49,6 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-launches_decide = 0       # decision-pass launches since the last reset
-launches = 0              # compositing-pass launches since the last reset
-launches_bwd = 0          # backward-pass launches since the last reset
-launches_integrate = 0    # field-query launches since the last reset
 build_log = ""            # nvcc/ptxas output of the builds this process made
 _libs = None
 
@@ -197,7 +194,6 @@ def decide(allf, point_list, tile_start, tile_count, s: "R.RasterStatics"):
     32 w + k passes t > 0.2 and alpha >= 1/255 for that pixel of its tile
     and lies inside the tile's window.  Only the words up to
     rasterize.mask_words_used are written; the rest stay uninitialised."""
-    global launches_decide
     T = s.grid_x * s.grid_y
     dev = _check_slab(allf, point_list, tile_start, tile_count, T, s)
     mask = torch.empty(R.mask_shape(point_list), dtype=torch.int32,
@@ -211,7 +207,7 @@ def decide(allf, point_list, tile_start, tile_count, s: "R.RasterStatics"):
     if err != 0:
         raise RuntimeError(
             f"gof_decide kernel launch failed: CUDA error {err}")
-    launches_decide += 1
+    profiling.count("launches.decide")
     return mask
 
 
@@ -222,7 +218,6 @@ def composite_fwd(allf, point_list, tile_start, tile_count, bg,
     `mask` is given) and the compositing pass over its set bits.  Returns
     (out (num_tiles, PIX, 9), RenderAux), the contract of
     rasterize._composite_fwd_impl."""
-    global launches
     T = s.grid_x * s.grid_y
     dev = _check_slab(allf, point_list, tile_start, tile_count, T, s, mask,
                       bg)
@@ -242,7 +237,7 @@ def composite_fwd(allf, point_list, tile_start, tile_count, bg,
         *(t.data_ptr() for t in fl), *(t.data_ptr() for t in it), stream)
     if err != 0:
         raise RuntimeError(f"raster_fwd kernel launch failed: CUDA error {err}")
-    launches += 1
+    profiling.count("launches.fwd")
     aux = R.RenderAux(final_T=fl[0], dist1=fl[1], dist2=fl[2],
                       raw_distortion=fl[3], last_pos=it[0], max_pos=it[1])
     return out, aux
@@ -257,7 +252,6 @@ def composite_bwd(allf, extra, point_list, tile_start, tile_count, bg,
     its `mask` is given), then the backward pass over the set bits up to
     each pixel's last_pos.  Returns (d_feat (P, NFEAT), d_stats (P, 3)),
     the contract of rasterize._composite_bwd_impl."""
-    global launches_bwd
     T = s.grid_x * s.grid_y
     dev = _check_slab(allf, point_list, tile_start, tile_count, T, s, mask,
                       bg)
@@ -287,7 +281,7 @@ def composite_bwd(allf, extra, point_list, tile_start, tile_count, bg,
         d_stats.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"raster_bwd kernel launch failed: CUDA error {err}")
-    launches_bwd += 1
+    profiling.count("launches.bwd")
     return d_feat, d_stats
 
 
@@ -309,7 +303,6 @@ def integrate(v2g_mb, opa, point_list, tile_start, tile_count, u, v, depth,
     integrate.SLICE_LEN, and at most integrate.MAX_SLICES slices;
     integrate._integrate_items is its plain version), the field and its
     second pass for the split windows.  No host sync."""
-    global launches_integrate
     from . import integrate as TI
     P = v2g_mb.shape[0]
     _check("v2g_mb", v2g_mb, torch.float32, (P, 12))
@@ -344,7 +337,7 @@ def integrate(v2g_mb, opa, point_list, tile_start, tile_count, u, v, depth,
     out = _integrate_launch(rows, keys, perm, point_list, tile_start,
                             tile_count, u, v, depth, max_per_tile, slice_len,
                             out)
-    launches_integrate += 1
+    profiling.count("launches.integrate")
     return out
 
 

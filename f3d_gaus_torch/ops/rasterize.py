@@ -35,6 +35,7 @@ import torch
 
 from ..core import gaussians as G
 from ..core.device import max_tie, resolve_device
+from ..utils import profiling
 from . import binning as B
 
 NEAR_PLANE = G.NEAR_PLANE
@@ -568,6 +569,7 @@ class CompositeInputs(NamedTuple):
     bg: torch.Tensor
 
 
+@profiling.spanned("prepare")
 def prepare(means3d, scales, quats, opacities, shs, camera, bg=None, *,
             sh_degree: int = 1, kernel_size: float = 0.0,
             scale_modifier: float = 1.0, pair_cap: int = 1 << 18,
@@ -575,12 +577,15 @@ def prepare(means3d, scales, quats, opacities, shs, camera, bg=None, *,
             means2d_stats=None, mask=None, device=None,
             tile_rows=None) -> CompositeInputs:
     """Preprocess and bin one Gaussian set for one camera (the part of
-    `render` before compositing; same arguments)."""
+    `render` before compositing; same arguments).  Spans (utils.
+    profiling): `prepare`, with `preprocess` and bin_gaussians's `binning`
+    inside."""
     dev = resolve_device(device, means3d if torch.is_tensor(means3d) else None)
     means3d, scales, quats, opacities, shs = (
         _as_tensor(a, dev) for a in (means3d, scales, quats, opacities, shs))
-    pre = G.preprocess(means3d, scales, quats, opacities, shs, sh_degree,
-                       camera, kernel_size, scale_modifier)
+    with profiling.span("preprocess"):
+        pre = G.preprocess(means3d, scales, quats, opacities, shs,
+                           sh_degree, camera, kernel_size, scale_modifier)
     if mask is not None:
         # dead slots are culled like frustum-failed Gaussians (no tile pairs)
         pre = pre._replace(radii=torch.where(

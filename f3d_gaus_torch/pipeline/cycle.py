@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from ..core import cameras
-from ..core.device import StageClock, clip_tie, resolve_device
+from ..core.device import clip_tie, resolve_device
+from ..utils import profiling
 from .config import PipelineConfig
 from . import renderer
 
@@ -93,6 +94,7 @@ def cycle_aggregate(model, cfg: PipelineConfig, gaussians, agg, bg):
 
 
 @torch.no_grad()
+@profiling.spanned("request")
 def run_nvs(model, cfg: PipelineConfig, cams, images, depth, bg=None,
             return_first=False, check_overflow=True, device=None,
             timings=None):
@@ -111,7 +113,8 @@ def run_nvs(model, cfg: PipelineConfig, cams, images, depth, bg=None,
     set.
     timings: a dict to receive each stage's wall seconds ('first_forward',
     'cycle_aggregate', 'nvs_orbit'); the device is synchronised after each
-    stage only when it is given.
+    stage only when it is given.  While tracing is on (utils.profiling)
+    the call is a root span `request` with a span per stage.
     """
     dev = resolve_device(device, images if torch.is_tensor(images) else None)
     model = model.to(dev).eval()
@@ -120,7 +123,7 @@ def run_nvs(model, cfg: PipelineConfig, cams, images, depth, bg=None,
     cano = cams.camera_set
     agg = aggregation_cameras(cfg, cams.inverse_first_camera)
     nvs = nvs_cameras(cfg, cams.inverse_first_camera)
-    clock = StageClock(dev, timings)
+    clock = profiling.StageClock(dev, timings)
 
     g0 = first_forward(model, images, depth, cano.view_to_world[0],
                        cano.cv2wT_quat[0])

@@ -46,10 +46,11 @@ import torch
 import torch.distributed as dist
 
 from ..core import cameras as C
-from ..core.device import StageClock, abs_tie, clip_tie, resolve_device
+from ..core.device import abs_tie, clip_tie, resolve_device
 from ..models import predictor as P
 from ..pipeline import renderer
 from ..pipeline.config import PipelineConfig
+from ..utils import profiling
 from . import losses
 
 
@@ -272,6 +273,7 @@ def loss_fn(model, cfg: PipelineConfig, batch, cameras_pack: CamerasPack,
     return loss, aux
 
 
+@profiling.spanned("step")
 def train_step(state: TrainState, cfg: PipelineConfig, batch,
                cameras_pack: CamerasPack, weights: LossWeights = LossWeights(),
                cur: Curriculum = Curriculum(), timings=None, towers=None,
@@ -294,9 +296,11 @@ def train_step(state: TrainState, cfg: PipelineConfig, batch,
     render of the step exceeded cfg.pair_cap / cfg.max_per_tile: the
     caller doubles the caps and runs the step again.  `timings`: a dict to
     receive the wall seconds of 'forward', 'backward' and 'optimizer' (the
-    device is synchronised after each only when it is given)."""
+    device is synchronised after each only when it is given).  While
+    tracing is on (utils.profiling) the step is a root span `step` with a
+    span per stage."""
     dev = next(state.model.parameters()).device
-    clock = StageClock(dev, timings)
+    clock = profiling.StageClock(dev, timings)
     state.optimizer.zero_grad(set_to_none=True)
     loss, aux = loss_fn(state.model, cfg, batch, cameras_pack, weights,
                         state.step, cur, towers)

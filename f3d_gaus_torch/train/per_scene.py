@@ -44,11 +44,12 @@ import torch
 
 from ..core import gaussians as G
 from ..core.cameras import Camera
-from ..core.device import EventClock, resolve_device
+from ..core.device import resolve_device
 from ..core.quaternions import quat_to_rotmat
 from ..ops import binning
 from ..ops import knn as knn_ops
 from ..ops import rasterize
+from ..utils import profiling
 from . import losses
 
 SH_C0 = 0.28209479177387814
@@ -269,6 +270,7 @@ def _loss_fn(diff_params, alive, stats_in, camera, target, bg,
     return loss, l1, out
 
 
+@profiling.spanned("fit_step")
 def train_step(scene: SceneParams, opt: AdamState, stats: SceneStats,
                cam_arrays, target, bg, cfg: PerSceneConfig,
                active_sh_degree: int, cam_statics, timings=None):
@@ -280,10 +282,12 @@ def train_step(scene: SceneParams, opt: AdamState, stats: SceneStats,
     cam_arrays = (world_view, full_proj, cam_center) numpy;
     cam_statics = (width, height, tan_fovx, tan_fovy).  `timings`: a dict
     that receives the forward, backward and Adam milliseconds from CUDA
-    events (one sync at the end of the step; none without it).
+    events (one sync at the end of the step; none without it).  While
+    tracing is on (utils.profiling) the step is a root span `fit_step`
+    with children `forward`, `backward` and `adam`, `timings` or not.
     """
     dev = scene.xyz.device
-    clock = EventClock(dev, timings)
+    clock = profiling.StageClock(dev, timings, unit="ms")
     camera = Camera(*cam_arrays, *cam_statics)
     cap = scene.xyz.shape[0]
     diff = [t.detach().requires_grad_() for t in tuple(scene)[:-1]]
@@ -472,7 +476,8 @@ def fit_scene(cameras, targets, init_points, init_colors,
     `cuda`).  `timings`: a dict that receives the seconds of the scene's
     init (KNN included), the steps and the surgery (the card synchronised
     around each surgery; no sync without it), and with planning the
-    planning's.
+    planning's.  While tracing is on (utils.profiling) each surgery and
+    each plan is a root span (`surgery`, `plan`), `timings` or not.
 
     caps: "fixed" renders at cfg's caps (the JAX package's behaviour);
     "plan" plans them (plan_caps over needed_caps at every camera, with
@@ -491,16 +496,9 @@ def fit_scene(cameras, targets, init_points, init_colors,
         raise ValueError(f"caps must be 'fixed' or 'plan', got {caps!r}")
     dev = resolve_device(device, targets if torch.is_tensor(targets)
                          else None)
-    mark = [time.perf_counter()]
-
-    def lap(name):
-        if timings is None:
-            return
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        timings[name] = timings.get(name, 0.0) + now - mark[0]
-        mark[0] = now
+    clock = profiling.StageClock(dev, timings, accumulate=True,
+                                 spans={"surgery_s": "surgery",
+                                        "plan_s": "plan"})
 
     rng = np.random.default_rng(seed)
     scene = init_scene(init_points, init_colors, cfg, device=dev)
@@ -515,7 +513,7 @@ def fit_scene(cameras, targets, init_points, init_colors,
     targets = torch.as_tensor(targets, dtype=torch.float32, device=dev)
     step_loss = torch.zeros(cfg.iterations, device=dev)
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
-    lap("init_s")
+    clock.lap("init_s")
 
     hist = {"loss": [], "alive": [], "densify": [], "caps": [],
             "plan_s": 0.0}
@@ -528,7 +526,7 @@ def fit_scene(cameras, targets, init_points, init_colors,
         planned = plan_caps(need, cfg)
         hist["plan_s"] += time.perf_counter() - t0
         hist["caps"].append({"it": it, **need, **planned})
-        lap("plan_s")
+        clock.lap("plan_s")
         return cfg._replace(**planned)
 
     plan = caps == "plan"
@@ -553,20 +551,20 @@ def fit_scene(cameras, targets, init_points, init_colors,
 
         if cfg.densify_from_iter < it < cfg.densify_until_iter \
                 and it % cfg.densification_interval == 0:
-            lap("steps_s")
+            clock.lap("steps_s")
             scene, opt, stats = densify_and_prune(
                 scene, opt, stats, cfg, extent,
                 prune_big=it > cfg.opacity_reset_interval, rng=rng)
             hist["densify"].append({"it": it,
                                     "alive": int(scene.alive.sum()),
                                     "cap": int(scene.xyz.shape[0])})
-            lap("surgery_s")
+            clock.lap("surgery_s")
         if it % cfg.opacity_reset_interval == 0 and it < cfg.densify_until_iter:
             scene, opt = reset_opacity(scene, opt)
         if plan and it < cfg.iterations and (
                 it % cfg.densification_interval == 0
                 or it % cfg.opacity_reset_interval == 0):
-            lap("steps_s")
+            clock.lap("steps_s")
             run_cfg = replan(it)
 
         if log_every and it % log_every == 0:
@@ -576,7 +574,7 @@ def fit_scene(cameras, targets, init_points, init_colors,
         if gui is not None:
             gui.poll(lambda vc: _gui_render(scene, vc, bg, run_cfg,
                                             active_sh))
-    lap("steps_s")
+    clock.lap("steps_s")
     hist["step_loss"] = step_loss.tolist()
     hist["overflow_steps"] = int(overflow)
     return scene, hist

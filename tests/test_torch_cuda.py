@@ -21,6 +21,7 @@ from f3d_gaus_torch.pipeline import config as TCfg
 from f3d_gaus_torch.pipeline import dataset as TD
 from f3d_gaus_torch.train import feedforward as TF
 from f3d_gaus_torch.train import per_scene as TPS
+from f3d_gaus_torch.utils import profiling
 import torch_cases  # tests/ is on sys.path under pytest (rootdir-less dir)
 
 pytestmark = pytest.mark.cuda
@@ -41,14 +42,23 @@ def _render(cam, cloud, bg, device, **kw):
                      torch.from_numpy(bg).to(device), **kw)
 
 
+def launched(fn):
+    """fn() counted by the program's profiling.record(): its output and the
+    launches of each kernel (decide, fwd, bwd, integrate)."""
+    with profiling.record():
+        out = fn()
+        torch.cuda.synchronize()
+        c = profiling.snapshot()["counters"]
+    return out, {k: c.get(f"launches.{k}", 0)
+                 for k in ("decide", "fwd", "bwd", "integrate")}
+
+
 @pytest.mark.parametrize("case", CASE_NAMES)
 def test_kernel_matches_plain(cuda, case):
     name, cam, cloud, bg, kw = next(c for c in torch_cases.small_cases()
                                     if c[0] == case)
-    before = cuda_raster.launches
-    k = _render(cam, cloud, bg, cuda, **kw)
-    torch.cuda.synchronize()
-    assert cuda_raster.launches == before + 1
+    k, n = launched(lambda: _render(cam, cloud, bg, cuda, **kw))
+    assert n["fwd"] == 1
     p = _render(cam, cloud, bg, cuda, backend="torch", **kw)
     claims = torch_cases.exercised(name, k["binning"].tile_count, k["aux"],
                                    kw["max_per_tile"])
@@ -71,10 +81,8 @@ def test_decide_kernel_matches_plain_mask(cuda, case):
     feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
     b, s = inp.binning, inp.statics
     slab = (b.point_list, b.tile_start, b.tile_count)
-    before = cuda_raster.launches_decide
-    k = cuda_raster.decide(feat, *slab, s)
-    torch.cuda.synchronize()
-    assert cuda_raster.launches_decide == before + 1
+    k, n = launched(lambda: cuda_raster.decide(feat, *slab, s))
+    assert n["decide"] == 1
     p = TR._contrib_mask_impl(feat, *slab, s)
     used = TR.mask_words_used(b.tile_start, b.tile_count, s)
     assert used > 0 or case == "behind_camera"
@@ -144,10 +152,9 @@ def test_bwd_kernel_matches_plain(cuda, case):
     """d_feat and d_stats within 5e-3 x max |g| per column (atomics
     reorder the sums)."""
     feat, extra, slab, aux, g, s = _bwd_inputs(case, cuda)
-    before = cuda_raster.launches_bwd
-    k = cuda_raster.composite_bwd(feat, extra, *slab, aux, g, s)
-    torch.cuda.synchronize()
-    assert cuda_raster.launches_bwd == before + 1
+    k, n = launched(lambda: cuda_raster.composite_bwd(feat, extra, *slab,
+                                                      aux, g, s))
+    assert n["bwd"] == 1
     p = TR._composite_bwd_impl(feat, extra, *slab, aux, g, s)
     for got, ref in zip(k, p):
         assert torch.isfinite(got).all()
@@ -259,13 +266,9 @@ def test_train_step_on_the_card(cuda):
     rng = np.random.default_rng(0)
     batch = {"images": rng.uniform(size=(2, 32, 32, 3)).astype(np.float32),
              "depth": rng.uniform(6.8, 8.5, size=(2, 32, 32)).astype(np.float32)}
-    f0, b0 = cuda_raster.launches, cuda_raster.launches_bwd
-    d0 = cuda_raster.launches_decide
-    loss, aux = TF.train_step(state, cfg, batch, pack)
-    torch.cuda.synchronize()
+    (loss, aux), n = launched(lambda: TF.train_step(state, cfg, batch, pack))
     assert np.isfinite(loss.item()) and state.step == 1
-    assert cuda_raster.launches - f0 == 6 and cuda_raster.launches_bwd - b0 == 6
-    assert cuda_raster.launches_decide - d0 == 12
+    assert n["fwd"] == 6 and n["bwd"] == 6 and n["decide"] == 12
     for p in state.model.parameters():
         assert torch.isfinite(p.grad).all()
 
@@ -277,10 +280,9 @@ def test_integrate_kernel_matches_plain(cuda, case):
     _, cam, cloud, pts, kw = INTEGRATE_CASES[case]
     tc = [torch.from_numpy(a).to(cuda) for a in cloud]
     tp = torch.from_numpy(pts).to(cuda)
-    before = cuda_raster.launches_integrate
-    k = TI.integrate_points(*tc, cam, tp, **kw)["alpha_integrated"]
-    torch.cuda.synchronize()
-    assert cuda_raster.launches_integrate == before + 1
+    k, n = launched(lambda: TI.integrate_points(*tc, cam, tp, **kw))
+    k = k["alpha_integrated"]
+    assert n["integrate"] == 1
     p = TI.integrate_points(*tc, cam, tp, backend="torch",
                             **kw)["alpha_integrated"]
     torch.testing.assert_close(k, p, atol=INTEGRATE_TOL, rtol=0)
@@ -288,9 +290,9 @@ def test_integrate_kernel_matches_plain(cuda, case):
     views = (orbit.world_view, orbit.full_proj, orbit.cam_centers)
     size = dict(width=32, height=32, tan_fovx=torch_cases.TAN,
                 tan_fovy=torch_cases.TAN)
-    km = TI.integrate_min_alpha(*tc, *views, tp, **size, **kw)
-    torch.cuda.synchronize()
-    assert cuda_raster.launches_integrate == before + 4
+    km, n = launched(lambda: TI.integrate_min_alpha(*tc, *views, tp, **size,
+                                                    **kw))
+    assert n["integrate"] == 3
     pm = TI.integrate_min_alpha(*tc, *views, tp, backend="torch", **size, **kw)
     torch.testing.assert_close(km, pm, atol=INTEGRATE_TOL, rtol=0)
 
@@ -365,9 +367,8 @@ def test_extract_mesh_kernel_matches_plain(cuda):
     vertices within 1e-4."""
     gauss, cams, kw = torch_cases.mesh_case("blob_grid")
     g = {k: torch.from_numpy(v).to(cuda) for k, v in gauss.items()}
-    before = cuda_raster.launches_integrate
-    k = TE.extract_mesh(g, cams, **kw)
-    assert cuda_raster.launches_integrate == before + 8 * (1 + 4)
+    k, n = launched(lambda: TE.extract_mesh(g, cams, **kw))
+    assert n["integrate"] == 8 * (1 + 4)
     p = TE.extract_mesh(g, cams, backend="torch", **kw)
     assert len(k.faces) > 50
     np.testing.assert_array_equal(k.faces, p.faces)
@@ -485,17 +486,12 @@ def test_per_scene_train_step_on_the_card(cuda):
     results = []
     for dev in (cuda, torch.device("cpu")):
         s = TPS.SceneParams(*[t.to(dev) for t in scene])
-        launches = (cuda_raster.launches, cuda_raster.launches_bwd,
-                    cuda_raster.launches_decide)
-        results.append(TPS.train_step(s, TPS.init_adam(s), TPS.init_stats(s),
-                                      arrays, target.to(dev),
-                                      torch.zeros(3, device=dev), cfg, 3,
-                                      statics))
+        out, n = launched(lambda: TPS.train_step(
+            s, TPS.init_adam(s), TPS.init_stats(s), arrays, target.to(dev),
+            torch.zeros(3, device=dev), cfg, 3, statics))
+        results.append(out)
         if dev.type == "cuda":
-            torch.cuda.synchronize()
-            assert (cuda_raster.launches - launches[0],
-                    cuda_raster.launches_bwd - launches[1],
-                    cuda_raster.launches_decide - launches[2]) == (1, 1, 2)
+            assert (n["fwd"], n["bwd"], n["decide"]) == (1, 1, 2)
     (_, k_opt, k_stats, k_aux), (_, p_opt, p_stats, p_aux) = results
     assert not bool(k_aux["overflow"])
     torch.testing.assert_close(k_aux["loss"].cpu(), p_aux["loss"], rtol=1e-5,

@@ -149,6 +149,7 @@ NOT_PORTED = {
     "models/songunet.py": {"init_params", "apply"},
     "models/vgg.py": {"init_params"},
     "parallel/sharded.py": {"overlap_flags"},
+    "utils/profiling.py": {"StepTimer"},
 }
 # JAX modules with no port module of their own: the Pallas kernels (K1/K2
 # in csrc/) and the numpy oracle the tests import from JAX
