@@ -1653,10 +1653,17 @@ def serving_path(args, dev, card):
 
     agg_cam = camera(cycle.aggregation_cameras(fcfg, cams.inverse_first_camera), 0)
     nvs_cam = camera(cycle.nvs_cameras(fcfg, cams.inverse_first_camera), 0)
-    shapes = {"aggregation": time_kernel(prepared(res.first, agg_cam, fcfg),
-                                         TIMED_LAUNCHES, 3),
-              "nvs": time_kernel(prepared(res.merged, nvs_cam, fcfg),
-                                 TIMED_LAUNCHES, 2)}
+    # fcfg holds the orbit stage's planned caps: every render timed below
+    # (the first forward's set at an aggregation camera included) must fit
+    inps = {"aggregation": prepared(res.first, agg_cam, fcfg),
+            "nvs": prepared(res.merged, nvs_cam, fcfg)}
+    for k, inp in inps.items():
+        b = inp.binning
+        require(not bool(b.overflow | (b.tile_count > fcfg.max_per_tile).any()),
+                f"the {k} render overflows the planned caps {fcfg.pair_cap}, "
+                f"{fcfg.max_per_tile}")
+    shapes = {"aggregation": time_kernel(inps["aggregation"], TIMED_LAUNCHES, 3),
+              "nvs": time_kernel(inps["nvs"], TIMED_LAUNCHES, 2)}
     for k, v in shapes.items():
         emit("kernel_timing", card=card, shape=k, **v)
     emit("nvs_render_breakdown", card=card,

@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core import gaussians as G
 from ..utils import profiling
 
 BLOCK = 16
@@ -182,6 +183,35 @@ def tile_occupancy(means2d, radii, width: int, height: int) -> torch.Tensor:
                         sign * w)
     occ = diff.reshape(*lead, grid_y + 1, grid_x + 1).cumsum(-2).cumsum(-1)
     return occ[..., :grid_y, :grid_x].reshape(*lead, -1).to(torch.int32)
+
+
+PLAN_CHUNK = 1 << 22      # (view, Gaussian) footprints per planning step
+
+
+@torch.no_grad()
+def footprint_need(xyz, scaling, rotation, world_views, full_projs, camera,
+                   kernel_size: float = 0.0) -> dict:
+    """What binning (B, P) Gaussians at the (V, 4, 4) world_views /
+    full_projs needs, exactly: {'pairs': the most (Gaussian, tile) pairs
+    of any (batch element, view), 'tile': the fullest tile's Gaussians of
+    any}; `camera` gives the size and field of view all V share.  Built
+    from the footprints preprocess gives (gaussians.screen_footprints, bit
+    for bit, PLAN_CHUNK at a time), their pair counts (tile_rects) and
+    tile occupancy (tile_occupancy); no binning, one host read."""
+    w, h = camera.width, camera.height
+    step = max(1, PLAN_CHUNK // max(xyz.shape[1], 1))
+    pairs, tiles = [], []
+    for b in range(xyz.shape[0]):
+        for i in range(0, len(world_views), step):
+            m2d, radii = G.screen_footprints(
+                xyz[b], scaling[b], rotation[b], world_views[i:i + step],
+                full_projs[i:i + step], camera, kernel_size)
+            *_, count = tile_rects(m2d, radii, w, h)
+            pairs.append(count.to(torch.int64).sum(-1).max())
+            tiles.append(tile_occupancy(m2d, radii, w, h).max().long())
+    n_pairs, n_tile = torch.stack([torch.stack(pairs).max(),
+                                   torch.stack(tiles).max()]).tolist()
+    return {"pairs": n_pairs, "tile": n_tile}
 
 
 def suggest_pair_cap(n: int, bucket: int = 1 << 16) -> int:

@@ -1,8 +1,8 @@
 """The CUDA kernels (the decision pass csrc/gof_decide.cu,
 csrc/raster_fwd.cu, csrc/raster_bwd.cu, the field query
 csrc/integrate.cu) against their plain PyTorch versions on the card, one
-feed-forward training step, one per-scene training step and one mesh
-extraction there.  Needs a CUDA
+feed-forward training step, one per-scene training step, one mesh
+extraction and one serving request at planned caps there.  Needs a CUDA
 device and nvcc; skips elsewhere.
 Imports no JAX, so on the card's machine it runs without the JAX
 package's conftest:
@@ -17,7 +17,11 @@ from f3d_gaus_torch.mesh import extract as TE
 from f3d_gaus_torch.ops import cuda_raster
 from f3d_gaus_torch.ops import integrate as TI
 from f3d_gaus_torch.ops import rasterize as TR
+from f3d_gaus_torch.core import gaussians as TG
+from f3d_gaus_torch.models import predictor as TP
+from f3d_gaus_torch.ops import binning as TB
 from f3d_gaus_torch.pipeline import config as TCfg
+from f3d_gaus_torch.pipeline import cycle as TC
 from f3d_gaus_torch.pipeline import dataset as TD
 from f3d_gaus_torch.train import feedforward as TF
 from f3d_gaus_torch.train import per_scene as TPS
@@ -503,3 +507,64 @@ def test_per_scene_train_step_on_the_card(cuda):
             for f in TPS.SceneParams._fields[:-1]]:
         assert torch.isfinite(got).all()
         assert (got - ref).abs().max() <= 5e-3 * ref.abs().max()
+
+
+def test_planned_request_equals_doubled_caps(cuda):
+    """One serving request at PipelineConfig() width and at caps planned
+    per stage (run_nvs_replanned, no doubling) against the same request
+    at the static caps the doubling settles on: the renders, the merged
+    Gaussians and the aggregation renders are equal; the plan's counts
+    equal, exactly, the most pairs and the fullest tile that preprocess
+    and the binning give over each stage's views (the first forward's set
+    at the aggregation cameras, the merged set at the NVS cameras), and
+    the planned caps are the orbit stage's counts rounded up to the 65,536
+    bucket and to the 256 lanes."""
+    cfg = TCfg.PipelineConfig()
+    model = TP.GaussianPredictor(cfg.predictor_config(),
+                                 torch.Generator().manual_seed(0)).to(cuda)
+    cams = TD.canonical_cameras(cfg)
+    rng = np.random.default_rng(0)
+    r = cfg.resolution
+    images = rng.uniform(size=(1, r, r, 3)).astype(np.float32)
+    depth = rng.uniform(6.667, 8.667, size=(1, r, r)).astype(np.float32)
+    res = TC.run_nvs_replanned(model, cfg, cams, images, depth, device=cuda)
+    assert res.attempts == 1
+    static = cfg
+    while True:
+        try:
+            merged, renders, agg_views = TC.run_nvs(model, static, cams,
+                                                    images, depth, device=cuda)
+            break
+        except TC.renderer.RenderOverflow:
+            static = TCfg.PipelineConfig(pair_cap=static.pair_cap * 2,
+                                         max_per_tile=static.max_per_tile * 2)
+    assert static.max_per_tile > cfg.max_per_tile
+    for got, want in ((res.renders, renders), (res.merged, merged),
+                      (res.agg_views, agg_views)):
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    agg = TC.aggregation_cameras(cfg, cams.inverse_first_camera)
+    nvs = TC.nvs_cameras(cfg, cams.inverse_first_camera)
+    for gs, camset in ((res.first, agg), (merged, nvs)):
+        # the plan's count, with no headroom, is the binning's own on the
+        # card: the most pairs and the fullest tile over the stage's views
+        g = {k: v[0] for k, v in gs.items()}
+        shs = torch.cat([g["features_dc"], g["features_rest"]], 1)
+        pairs, tile = 0, 0
+        for v in range(len(camset.world_view)):
+            cam = camset.camera(v, r, r, cfg.tan_fov, cfg.tan_fov)
+            pre = TG.preprocess(g["xyz"], g["scaling"], g["rotation"],
+                                g["opacity"], shs, cfg.max_sh_degree, cam,
+                                cfg.kernel_size)
+            n = int(TB.count_pairs(pre.means2d, pre.radii, r, r))
+            bng = TB.bin_gaussians(pre.means2d, pre.radii, pre.depths, r, r,
+                                   TB.suggest_pair_cap(n))
+            assert not bool(bng.overflow)
+            pairs, tile = max(pairs, n), max(tile, int(bng.tile_count.max()))
+        need = TB.footprint_need(gs["xyz"], gs["scaling"], gs["rotation"],
+                                 camset.world_view, camset.full_proj, cam,
+                                 cfg.kernel_size)
+        assert need == {"pairs": pairs, "tile": tile}
+    want_cap = -(-TB.suggest_pair_cap(pairs) // 256) * 256
+    assert res.cfg.pair_cap == want_cap < static.pair_cap
+    assert res.cfg.max_per_tile == -(-tile // 256) * 256

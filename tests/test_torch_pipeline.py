@@ -20,6 +20,7 @@ from f3d_gaus_torch.pipeline import config as TCfg
 from f3d_gaus_torch.pipeline import cycle as Tcycle
 from f3d_gaus_torch.pipeline import dataset as TD
 from f3d_gaus_torch.pipeline import renderer as Trenderer
+from f3d_gaus_torch.utils import profiling
 import torch_cases  # tests/ is on sys.path under pytest (rootdir-less dir)
 
 # the suite runs in several xdist workers on one CPU: torch's intra-op
@@ -113,21 +114,119 @@ def test_depth_to_normal_matches_jax():
     np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-4)
 
 
-def test_run_nvs_replanned_doubles_caps():
+def test_run_nvs_replanned_doubles_caps(monkeypatch):
+    """The guard: with the planner patched to return the caller's tiny
+    caps, the planned run overflows and the caps double from the caller's
+    until the renders fit, each doubling counted as a fallback."""
     cfg = TCfg.PipelineConfig(**dict(SMALL, pair_cap=1 << 8, max_per_tile=32))
+    monkeypatch.setattr(Tcycle, "stage_caps", lambda g, wv, fp, c: c)
     model = TP.GaussianPredictor(cfg.predictor_config(),
                                  torch.Generator().manual_seed(0))
     images, depth = _inputs(1)
     msgs, timings = [], {}
-    res = Tcycle.run_nvs_replanned(model, cfg, TD.canonical_cameras(cfg),
-                                   images, depth, device="cpu",
-                                   log=msgs.append, timings=timings)
+    with profiling.record():
+        res = Tcycle.run_nvs_replanned(model, cfg, TD.canonical_cameras(cfg),
+                                       images, depth, device="cpu",
+                                       log=msgs.append, timings=timings)
+        counters = profiling.snapshot()["counters"]
     assert res.attempts == len(msgs) + 1 > 1
     assert res.cfg.max_per_tile == 32 << len(msgs)
+    assert counters["caps.fallbacks"] == len(msgs)
     assert set(timings) == {"first_forward", "cycle_aggregate", "nvs_orbit"}
     assert all(t > 0 for t in timings.values())
     assert res.renders["render"].shape == (1, 2, 3, 32, 32)
     assert res.merged["xyz"].shape == (1, 2 * 32 * 32, 3)
+
+
+def test_run_nvs_replanned_plans_tiny_caps():
+    """At the doubling test's tiny caps the planned run fits at once: one
+    attempt, no render truncated, no fallback, two stages planned, and
+    the renders and merged Gaussians equal, bit for bit, run_nvs's at
+    static caps ample for every render (nothing truncated, so the caps do
+    not show); the returned config carries the orbit stage's plan."""
+    cfg = TCfg.PipelineConfig(**dict(SMALL, pair_cap=1 << 8, max_per_tile=32))
+    big = TCfg.PipelineConfig(**SMALL)
+    model = TP.GaussianPredictor(cfg.predictor_config(),
+                                 torch.Generator().manual_seed(0))
+    cams = TD.canonical_cameras(cfg)
+    images, depth = _inputs(1)
+    msgs, timings = [], {}
+    with profiling.record():
+        res = Tcycle.run_nvs_replanned(model, cfg, cams, images, depth,
+                                       device="cpu", log=msgs.append,
+                                       timings=timings)
+        counters = profiling.snapshot()["counters"]
+    assert res.attempts == 1 and msgs == []
+    assert counters["caps.plans"] == 2 and "caps.fallbacks" not in counters
+    assert set(timings) == {"first_forward", "cycle_aggregate", "nvs_orbit"}
+    assert not res.renders["overflow"].any()
+    assert not res.agg_views["overflow"].any()
+    mt, rt, at, gt = Tcycle.run_nvs(model, big, cams, images, depth,
+                                    return_first=True, device="cpu")
+    for got, want in ((res.merged, mt), (res.renders, rt),
+                      (res.agg_views, at), (res.first, gt)):
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    nvs = Tcycle.nvs_cameras(cfg, cams.inverse_first_camera)
+    assert res.cfg == Tcycle.stage_caps(mt, nvs.world_view, nvs.full_proj,
+                                        cfg)
+    assert res.cfg.max_per_tile % 256 == 0
+    assert res.cfg.max_per_tile < big.max_per_tile
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_footprint_need_counts_exactly(monkeypatch, batch):
+    """binning.footprint_need, with no binning, is the binning's own count
+    at each serving stage: for the first forward's set at the aggregation
+    cameras and the merged set at the NVS cameras, the most pairs
+    (binning.count_pairs) and the fullest tile (bin_gaussians'
+    tile_count) over every (batch element, view) of preprocess's
+    footprints, with the footprints taken a few views at a time;
+    cycle.stage_caps rounds them up to the buckets."""
+    from f3d_gaus_torch.core import gaussians as TG
+    from f3d_gaus_torch.core.cameras import Camera
+    from f3d_gaus_torch.ops import binning as TB
+    cfg = TCfg.PipelineConfig(**dict(SMALL, num_aggregation_views=2,
+                                     num_nvs_views=4))
+    model = TP.GaussianPredictor(cfg.predictor_config(),
+                                 torch.Generator().manual_seed(0))
+    cams = TD.canonical_cameras(cfg)
+    rng = np.random.default_rng(5)
+    images = rng.uniform(size=(batch, 32, 32, 3)).astype(np.float32)
+    depth = rng.uniform(6.667, 8.667, size=(batch, 32, 32)).astype(np.float32)
+    merged, _, _, g0 = Tcycle.run_nvs(model, cfg, cams, images, depth,
+                                      return_first=True, device="cpu")
+    agg = Tcycle.aggregation_cameras(cfg, cams.inverse_first_camera)
+    nvs = Tcycle.nvs_cameras(cfg, cams.inverse_first_camera)
+    # two views of the merged set a footprint step, so both stages chunk
+    monkeypatch.setattr(TB, "PLAN_CHUNK", 2 * merged["xyz"].shape[1])
+    for g, camset in ((g0, agg), (merged, nvs)):
+        pairs, tile = [], []
+        for b in range(batch):
+            shs = torch.cat([g["features_dc"][b], g["features_rest"][b]], 1)
+            for v in range(len(camset.world_view)):
+                cam = Camera(camset.world_view[v], camset.full_proj[v],
+                             camset.cam_centers[v], 32, 32, cfg.tan_fov,
+                             cfg.tan_fov)
+                pre = TG.preprocess(g["xyz"][b], g["scaling"][b],
+                                    g["rotation"][b], g["opacity"][b], shs,
+                                    cfg.max_sh_degree, cam, cfg.kernel_size)
+                pairs.append(int(TB.count_pairs(pre.means2d, pre.radii, 32,
+                                                32)))
+                bng = TB.bin_gaussians(pre.means2d, pre.radii, pre.depths,
+                                       32, 32, 1 << 16)
+                assert not bool(bng.overflow)
+                tile.append(int(bng.tile_count.max()))
+        need = TB.footprint_need(g["xyz"], g["scaling"], g["rotation"],
+                                 camset.world_view, camset.full_proj, cam,
+                                 cfg.kernel_size)
+        assert need == {"pairs": max(pairs), "tile": max(tile)}
+        planned = Tcycle.stage_caps(g, camset.world_view, camset.full_proj,
+                                    cfg)
+        assert planned == dataclasses.replace(
+            cfg, pair_cap=TB.suggest_pair_cap(max(pairs)),
+            max_per_tile=-(-max(tile) // 256) * 256)
 
 
 def test_run_nvs_check_overflow():
