@@ -7,10 +7,12 @@ layout the reference feeds to its CUDA kernels (transformPoint4x3 reads
 column-strided elements — auxiliary.h:86-94), i.e. `world_view_transform` is
 the transpose of the column-vector world->camera matrix.
 
-Everything in this module is host-side setup math: plain numpy, float32, run
-once per batch of cameras.  The render path turns the resulting `Camera`
-matrices into tensors on the render device.  A numpy copy of
-f3d_gaus_tpu/core/cameras.py (that package's import chain pulls in JAX).
+Everything in this module but `plucker_rays` is host-side setup math: plain
+numpy, float32, run once per batch of cameras.  The render path turns the
+resulting `Camera` matrices into tensors on the render device.  A numpy copy
+of f3d_gaus_tpu/core/cameras.py (that package's import chain pulls in JAX).
+`plucker_rays` (no JAX counterpart) builds the per-pixel rays of posed input
+views on their tensors' device, as GS-LRM's tokenizer reads them.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import math
 from typing import NamedTuple, Optional
 
 import numpy as np
+import torch
 
 
 class Camera(NamedTuple):
@@ -228,3 +231,28 @@ def orbit_camera_set(num_frames: int, fov_deg: float, radius: float,
     yaw, pitch = orbit_angles(num_frames, yaw_diff, pitch_diff)
     return build_camera_set(yaw, pitch, radius, look_at_z, fov_deg, znear,
                             zfar, rebase=rebase)
+
+
+def plucker_rays(world_view: torch.Tensor, tan_fovx: float, tan_fovy: float,
+                 height: int, width: int):
+    """Per-pixel rays of cameras given by row-vector world_view tensors
+    (..., 4, 4), in their dtype and on their device.
+
+    Pixel (i, j) looks through its centre, in 3DGS's convention: x at NDC
+    (2j + 1) / width - 1 times tan_fovx, y at (2i + 1) / height - 1 times
+    tan_fovy (+y down, +z forward, COLMAP's axes).  Returns the camera
+    centres o (..., 3), the unit world directions d (..., H, W, 3) and the
+    Plücker coordinates (o × d, d) (..., H, W, 6)."""
+    dt, dev = world_view.dtype, world_view.device
+    rot = world_view[..., :3, :3]           # x_view = x_world @ rot + t
+    o = -(world_view[..., 3:, :3] @ rot.transpose(-1, -2))[..., 0, :]
+    ys = ((2 * torch.arange(height, dtype=dt, device=dev) + 1) / height
+          - 1) * tan_fovy
+    xs = ((2 * torch.arange(width, dtype=dt, device=dev) + 1) / width
+          - 1) * tan_fovx
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    d_cam = torch.stack([gx, gy, torch.ones_like(gx)], -1)
+    d = torch.einsum("hwj,...ij->...hwi", d_cam, rot)
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    o_px = o[..., None, None, :].expand_as(d)
+    return o, d, torch.cat([torch.linalg.cross(o_px, d, dim=-1), d], -1)

@@ -5,8 +5,10 @@ Activations run NCHW inside the network; weights are OIHW, the layout of
 the reference's torch state_dict.  The [1,1] resample filter reduces to
 nearest-neighbour 2x upsampling / 2x2 mean-pool downsampling before the
 convolution.  Attention scores are computed in float32 with a plain matmul
-and softmax.  Initialization is EDM's xavier_uniform with a gain, drawn from
-an explicit torch.Generator.
+and softmax: `attention` (one head, the SongUNet's and CLIP's lengths) holds
+all its scores; `multihead_attention` (GS-LRM's 16,384 tokens) a block of
+queries at a time.  Initialization is EDM's xavier_uniform with a gain,
+drawn from an explicit torch.Generator.
 
 Not ported, by design: the JAX module's functional `conv2d`, `group_norm`
 and `linear` and their `conv_init`, `groupnorm_init` and `linear_init`;
@@ -19,6 +21,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..utils import profiling
 
 
 def silu(x):
@@ -80,3 +84,40 @@ def attention(q, k, v):
     w = torch.matmul(q.float(), (k.float() / math.sqrt(C)).transpose(1, 2))
     w = torch.softmax(w, dim=-1)
     return torch.matmul(w, v.float()).to(q.dtype)
+
+
+ATTN_BLOCK_BYTES = 1 << 30     # scores held at a time by multihead_attention
+
+
+@profiling.spanned("attention")
+def multihead_attention(q, k, v, block_bytes: int = ATTN_BLOCK_BYTES):
+    """softmax(q k^T / sqrt(d)) v of every head in float32, a block of
+    queries at a time.  q (B, H, L, d), k and v (B, H, S, d).  Returns
+    (B, H, L, d).
+
+    The scores of a block are one cuBLAS batched product (f32 on the FMA
+    units while TF32 is off, as core.device.resolve_device leaves it), a
+    softmax over the keys and a second batched product.  A block holds at
+    most `block_bytes` of scores: whole heads while S·L·4 bytes fit, else
+    rows of one head, so all heads' L×S scores are never held at once
+    (17.2 GB a layer at 16,384 tokens and 16 heads).  While tracing is on
+    (utils.profiling) the call is span `attention` and counts
+    `attention.calls` and `attention.tokens` (L)."""
+    B, H, L, d = q.shape
+    S = k.shape[2]
+    profiling.count("attention.calls")
+    profiling.count("attention.tokens", L)
+    q = (q.float() * (1.0 / math.sqrt(d))).reshape(B * H, L, d)
+    kt = k.float().reshape(B * H, S, d).transpose(1, 2)
+    v = v.float().reshape(B * H, S, d)
+    rows = max(1, block_bytes // (S * 4))
+    heads = max(1, rows // L) if rows >= L else 1
+    rows = min(rows, L)
+    out = q.new_empty((B * H, L, d))
+    for h in range(0, B * H, heads):
+        hs = slice(h, h + heads)
+        for r in range(0, L, rows):
+            rs = slice(r, r + rows)
+            p = torch.softmax(torch.bmm(q[hs, rs], kt[hs]), dim=-1)
+            out[hs, rs] = torch.bmm(p, v[hs])
+    return out.reshape(B, H, L, d)

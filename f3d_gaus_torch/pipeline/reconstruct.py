@@ -1,0 +1,79 @@
+"""Multi-view reconstruction serving: posed input views -> GS-LRM's
+pixel-aligned Gaussians -> an orbit of renders.  No JAX counterpart.
+
+`run_gslrm` predicts the Gaussians once (models/gslrm.py), then renders
+the orbit at the caps `cycle.stage_caps` plans from the set's own
+footprints at the orbit's cameras, with run_nvs_replanned's guard: should
+a planned render overflow, the caller's caps are doubled and the orbit is
+rendered again at them as static caps, at most cycle.MAX_DOUBLINGS times.
+There is no cycle stage: the input views already surround the object.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from ..utils import profiling
+from . import cycle, renderer
+from .config import PipelineConfig
+
+
+class ReconResult(NamedTuple):
+    gaussians: dict        # (B, V·H·W, ...) pixel-aligned Gaussians
+    renders: dict          # the orbit's renders (B, F, ...)
+    cfg: PipelineConfig    # the config whose caps the orbit rendered at
+    attempts: int          # orbit renders tried (1 = the plan fitted)
+
+
+@torch.no_grad()
+@profiling.spanned("recon")
+def run_gslrm(model, cfg: PipelineConfig, images, input_cams, orbit_cams,
+              timings=None, device=None, log=print) -> ReconResult:
+    """One reconstruction request.
+
+    model: a GSLRM on the run's device; cfg: the render settings
+    (resolution, fov_deg, max_sh_degree 0, chunk, kernel_size) and the
+    caps to double from should the plan fail; images (B, V, H, W, 3) RGB
+    in [0, 1] seen by the input cameras `input_cams`, (B, V, 4, 4)
+    row-vector world_view matrices at cfg's field of view; orbit_cams:
+    anything with `world_view`, `full_proj` (F, 4, 4) and `cam_centers`
+    (F, 3) arrays.  Runs on `device` (default: the images' device, else
+    cuda).  The returned `cfg` carries the orbit's planned caps, which a
+    caller may pass to the next request as cli.main carries run_nvs's.
+
+    timings: a dict to receive the wall seconds of the stages `predict`
+    and `orbit` (the card synchronised at each).  While tracing is on
+    (utils.profiling) the call is a root span `recon` with a span per
+    stage (`plan_caps` inside `orbit`), and each doubling counts
+    `caps.fallbacks`."""
+    dev = resolve_device(device, images if torch.is_tensor(images) else None)
+    images = torch.as_tensor(images, dtype=torch.float32, device=dev)
+    views = torch.as_tensor(np.asarray(input_cams, np.float32), device=dev)
+    bg = torch.zeros(3, device=dev)
+    clock = profiling.StageClock(dev, timings)
+
+    gaussians = model(images, views, cfg.tan_fov)
+    clock.lap("predict")
+    run_cfg = cycle.stage_caps(gaussians, orbit_cams.world_view,
+                               orbit_cams.full_proj, cfg)
+    for attempt in range(cycle.MAX_DOUBLINGS + 1):
+        renders = renderer.render_views_batched(
+            gaussians, orbit_cams.world_view, orbit_cams.full_proj,
+            orbit_cams.cam_centers, bg, run_cfg)
+        n_over = int(renders["overflow"].sum())
+        if not n_over:
+            clock.lap("orbit")
+            return ReconResult(gaussians, renders, run_cfg, attempt + 1)
+        profiling.count("caps.fallbacks")
+        cfg = dataclasses.replace(cfg, pair_cap=cfg.pair_cap * 2,
+                                  max_per_tile=cfg.max_per_tile * 2)
+        log(f"{n_over} orbit renders exceeded pair_cap={run_cfg.pair_cap} "
+            f"max_per_tile={run_cfg.max_per_tile}; rendering again at "
+            f"pair_cap={cfg.pair_cap} max_per_tile={cfg.max_per_tile}")
+        run_cfg = cfg
+    raise RuntimeError(
+        f"render caps still overflow after {cycle.MAX_DOUBLINGS} doublings")

@@ -1,0 +1,79 @@
+"""GS-LRM at its published widths on the card: models/layers.py:
+multihead_attention at 16,384 tokens, 16 heads of 64, and one GSLRM
+forward (4 views at 512², 24 layers, width 1024), each against the plain
+reference models/gslrm_reference.py, within the limit the benchmark's
+cell holds the final tokens to (`token_gap`,
+benchmark/workloads/gslrm_object_512.recon_b1.json).  Needs a CUDA
+device; skips elsewhere.  Imports no JAX:
+
+    python -m pytest tests/test_torch_cuda_gslrm.py -m cuda -q --noconftest
+"""
+import json
+import math
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from f3d_gaus_torch.core.device import resolve_device
+from f3d_gaus_torch.models import gslrm as G
+from f3d_gaus_torch.models import gslrm_reference as GR
+from f3d_gaus_torch.models import layers as L
+import torch_cases  # tests/ is on sys.path under pytest (rootdir-less dir)
+
+pytestmark = pytest.mark.cuda
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _token_limit():
+    path = os.path.join(ROOT, "benchmark", "workloads",
+                        "gslrm_object_512.recon_b1.json")
+    with open(path) as f:
+        return json.load(f)["limits"]["token_gap"]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return resolve_device("cuda")
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@torch.no_grad()
+def test_attention_at_the_published_length(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = [torch.randn(1, 16, 16384, 64, generator=g, device=cuda)
+               for _ in range(3)]
+    got = L.multihead_attention(q, k, v)
+    want = GR.blocked_attention(q, k, v)
+    assert _rel(got, want) < _token_limit()
+
+
+@torch.no_grad()
+def test_gslrm_forward_at_the_published_widths(cuda):
+    cfg = G.GSLRMConfig()
+    with torch.device(cuda):
+        ref = GR.GSLRM(GR.GSLRMConfig(),
+                       torch.Generator(device=cuda).manual_seed(0))
+        model = G.GSLRM(cfg, None)
+    model.load_state_dict(ref.state_dict())
+    tokens = {}
+    model.norm.register_forward_hook(
+        lambda m, i, o: tokens.__setitem__("x", o))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    images = torch.rand(1, 4, 512, 512, 3, generator=g, device=cuda)
+    az = 0.3 + np.arange(4) * np.pi / 2
+    wv = torch.tensor(torch_cases.turntable_views(az), dtype=torch.float32,
+                      device=cuda)[None]
+    tan = math.tan(0.6911 / 2)
+    got = model(images, wv, tan)
+    want, want_tokens = ref(images, wv, tan)
+    assert _rel(tokens["x"], want_tokens) < _token_limit()
+    assert got["xyz"].shape == (1, 4 * 512 * 512, 3)
+    for k in ("xyz", "opacity", "scaling", "rotation", "features_dc"):
+        assert _rel(got[k], want[k]) < 1e-3, k

@@ -313,3 +313,25 @@ def bench_parity(a9, b9):
     ch = list(range(6)) + [7, 8]
     err = np.abs(np.asarray(a9)[ch] - np.asarray(b9)[ch])
     return float(err.max()), float((err > 1e-3).mean())
+
+
+def turntable_views(azimuths, elevation=20.0, radius=4.03):
+    """(n, 4, 4) row-vector world_view matrices of cameras on a circle
+    around the origin (z up) at `elevation` degrees, each looking at it,
+    in COLMAP's axes (+y down, +z forward), as
+    benchmark/inputs.py:blender_cameras makes them: GS-LRM's input and
+    turntable cameras."""
+    out = []
+    el = np.radians(elevation)
+    for az in azimuths:
+        p = radius * np.array([np.cos(el) * np.cos(az),
+                               np.cos(el) * np.sin(az), np.sin(el)])
+        f = -p / np.linalg.norm(p)
+        r = np.cross(f, [0.0, 0.0, 1.0])
+        r /= np.linalg.norm(r)
+        c2w = np.eye(4)
+        c2w[:3, :3] = np.stack([r, np.cross(r, f), -f], 1)
+        c2w[:3, 3] = p
+        c2w[:3, 1:3] *= -1
+        out.append(np.linalg.inv(c2w).T)
+    return np.stack(out)
