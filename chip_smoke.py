@@ -7,7 +7,8 @@
 Phases, one JSON line each:
   1. environment: torch, CUDA, nvcc, the card; builds the decision pass
      csrc/gof_decide.cu, csrc/raster_fwd.cu, csrc/raster_bwd.cu (all
-     including csrc/gof_pair.cuh) and csrc/integrate.cu anew for sm_90a
+     including csrc/gof_pair.cuh), csrc/integrate.cu and
+     csrc/preprocess.cu anew for sm_90a
      (one nvcc each, in parallel) and prints ptxas's register/shared-memory
      lines;
   2. decide_vs_plain: the decision pass's mask against its plain version
@@ -45,12 +46,21 @@ Phases, one JSON line each:
      a thin-Gaussian case and at both flagship views; on the flagship cloud's
      9-per-Gaussian seed points at the frontal NVS view and the bench
      camera, bench.py's anchor (max < 2e-2, <= 0.1 % above 1e-3);
+     preprocess_vs_plain: the preprocess kernel csrc/preprocess.cu
+     against its plain version (rasterize._preprocess_impl, the composed
+     route) on the main path's three shapes (an orbit view of a request's
+     589,824 merged Gaussians, an aggregation view of 65,536, GS-LRM's
+     1,048,576 at 512^2) and two edge clouds of tests/torch_cases.
+     preprocess_cases: every field and table it writes equal bit for bit,
+     and the binning; at the three shapes its device time a launch, cold
+     (L2 flushed) and warm, beside the composed route's device, host and
+     CUDA-event times and the byte bound;
   3. main_path (serving): cycle.run_nvs_replanned at PipelineConfig() width
      (256^2, base_dim 128, 8 aggregation views, 128+1 NVS views) with
      random EDM weights from a seeded torch.Generator on a numpy-made RGB-D
      input; checks shapes, finiteness, no overflow, and that every render
-     went through K1 (launch count == (8 + 129) per attempt, as many
-     decision passes, no K2);
+     went through K1 and the preprocess kernel (launch count == (8 + 129)
+     per attempt, as many decision passes and preprocess launches, no K2);
   4. kernel_timing: K1 with CUDA events at the serving path's two shapes
      (aggregation render, P = 65,536; NVS render, P = 589,824), whole and
      each pass alone (decide_ms, composite_ms), beside the plain version
@@ -58,7 +68,8 @@ Phases, one JSON line each:
      pairs the decision's shortcut rules out counted as such: pair_work),
      the decision pass's mask against the plain mask, whether
      two launches agree bit for bit, and the split of one
-     NVS render into preprocess, binning, compositing and the rest, with
+     NVS render into preprocess (the route prepare takes), binning,
+     compositing and the rest, with
      a torch.profiler trace of that render; band_vs_plain: that NVS render
      split into NVS_BANDS bands of its 16 tile rows, each rendered through
      the kernels with its row_off (rasterize.prepare(tile_rows=...)) and
@@ -76,7 +87,7 @@ Phases, one JSON line each:
      to 1.0 (at the init no point reaches alpha 0.5 and the mesh is
      empty); requires a mesh_binary_search.ply with faces that reads
      back, no truncated field view, 129 x (1 + 8) field-query launches
-     and (8 + 129) K1 launches per attempt; reports extract_mesh's stage
+     and (8 + 129) K1 and preprocess launches per attempt; reports extract_mesh's stage
      seconds and counts, the CLI's wall time and peak memory;
   6. integrate_timing: the field query at that run's first-forward
      Gaussians, seed points, frontal NVS camera and caps: kernel and
@@ -101,7 +112,7 @@ Phases, one JSON line each:
      the caps double on RenderOverflow (the step runs again, unapplied);
      checks finite terms, moved parameters, a falling loss, and that K1
      and K2 each launch 3 times per image per applied step, the decision
-     pass once for each of them; per-step forward / backward / optimizer
+     pass once for each of them, and the preprocess kernel never; per-step forward / backward / optimizer
      seconds and peak allocated memory; then a torch.profiler trace of one
      more step; train_grads_vs_plain: the predictor's gradients of the
      step's objective on GRAD_BATCH images from one forward, through K2
@@ -172,6 +183,7 @@ import argparse
 import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -195,6 +207,8 @@ OPS_PER_DECIDED = 41
 OPS_PER_CONTRIB = 64
 OPS_PER_CONTRIB_BWD = 181
 TIMED_LAUNCHES = 20        # kernel launches per CUDA-event timing
+PREPROCESS_TURNS = 2       # (plain, kernel, kernel, plain) timing turns
+L2_FLUSH_BYTES = 256 << 20   # written before each cold launch: 5x the L2
 # gradient tolerance, x max |g| per column: the JAX package's own
 # (tests/test_pallas_raster.py:51-53); K2's atomics reorder the sums
 GRAD_TOL = 5e-3
@@ -384,11 +398,10 @@ def pair_work(inp, last_pos=None):
     that passes the decision."""
     import collections
     import torch
-    from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.ops import rasterize as R
 
     s, bng = inp.statics, inp.binning
-    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa)
+    feat = R._tables(inp)[0]
     dev = feat.device
     u, v = R._tile_rays(s, dev)
     C = s.chunk
@@ -466,7 +479,7 @@ def time_kernel(inp, iters, plain_iters, held=True):
     from f3d_gaus_torch.ops import rasterize as R
 
     pre, bng, s = inp.pre, inp.binning, inp.statics
-    feat = cuda_raster._all_features(pre.v2g_mb, inp.rgb, inp.opa).detach()
+    feat = R._tables(inp)[0].detach()
     args = (bng.point_list, bng.tile_start, bng.tile_count, inp.bg)
     ms = time_ms(lambda: cuda_raster.composite_fwd(feat, *args, s), iters)
     mask = cuda_raster.decide(feat, *args[:3], s)
@@ -524,9 +537,9 @@ def bwd_inputs(inp, seed):
     import numpy as np
     import torch
     from f3d_gaus_torch.ops import cuda_raster
+    from f3d_gaus_torch.ops import rasterize as R
 
-    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
-    extra = torch.cat([inp.pre.conic, inp.pre.means2d], 1).detach()
+    feat, extra = (t.detach() for t in R._tables(inp))
     b = inp.binning
     slab = (b.point_list, b.tile_start, b.tile_count, inp.bg)
     out, aux = cuda_raster.composite_fwd(feat, *slab, inp.statics)
@@ -626,11 +639,10 @@ def alpha_error_bound(inp, mask, aux):
     contributors' |rgb|) (normals and alpha have |c| <= 1).  Returns
     (num_tiles, PIX) f64."""
     import torch
-    from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.ops import rasterize as R
 
     s, b = inp.statics, inp.binning
-    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
+    feat = R._tables(inp)[0].detach()
     _, valid, wfeat, n = R._windows(feat, b.point_list, b.tile_start,
                                     b.tile_count, s)
     rays = tuple(x.double()[..., None] for x in R._tile_rays(s, feat.device))
@@ -676,11 +688,10 @@ def flip_margins(inp, aux):
     walked pairs by MARGIN_KINDS (alpha, t, num, cond; inf for none) and
     the (P,) mask of the Gaussians walked at all."""
     import torch
-    from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.ops import rasterize as R
 
     s, b = inp.statics, inp.binning
-    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
+    feat = R._tables(inp)[0].detach()
     P, dev = feat.shape[0], feat.device
     C = s.chunk
     gids, valid, wfeat, n = R._windows(feat, b.point_list, b.tile_start,
@@ -726,7 +737,7 @@ def compare_mask(inp, exact=True, plain=None):
     from f3d_gaus_torch.ops import rasterize as R
 
     s, b = inp.statics, inp.binning
-    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
+    feat = R._tables(inp)[0].detach()
     slab = (b.point_list, b.tile_start, b.tile_count)
     k = cuda_raster.decide(feat, *slab, s)
     p = R._contrib_mask_impl(feat, *slab, s) if plain is None else plain
@@ -909,7 +920,7 @@ def tie_census(inp, aux):
     from f3d_gaus_torch.ops import rasterize as R
 
     s, b = inp.statics, inp.binning
-    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
+    feat = R._tables(inp)[0].detach()
     P, dev, C = feat.shape[0], feat.device, s.chunk
     mask = cuda_raster.decide(feat, b.point_list, b.tile_start, b.tile_count,
                               s)
@@ -1275,12 +1286,13 @@ def prepared(g, cam, cfg, b=0, tile_rows=None):
 
 
 def launch_counts():
-    """(K1, K2, decision pass, field query) launches counted since the
-    program's profiling.record() began (its `launches.*` counters)."""
+    """(K1, K2, decision pass, field query, preprocess) launches counted
+    since the program's profiling.record() began (its `launches.*`
+    counters)."""
     from f3d_gaus_torch.utils import profiling
     c = profiling.snapshot()["counters"]
     return tuple(c.get(f"launches.{k}", 0)
-                 for k in ("fwd", "bwd", "decide", "integrate"))
+                 for k in ("fwd", "bwd", "decide", "integrate", "preprocess"))
 
 
 def counted(fn, k1=0, k2=0, decide=0):
@@ -1420,11 +1432,13 @@ def band_vs_plain(case, render, n_bands, seed, per_scene=False,
 
 def render_breakdown(g, cam, cfg, reps=3):
     """Milliseconds of one render through renderer.render_gaussians, split
-    into preprocess, binning, compositing (feature table + kernel) and the
+    into preprocess (the route rasterize.prepare takes for these inputs:
+    `preprocess_route`), binning (the rest of prepare), compositing and the
     image/normal assembly after it; the card is synchronised around each
     part."""
     import torch
     from f3d_gaus_torch.core import gaussians as G
+    from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.ops import rasterize as R
     from f3d_gaus_torch.pipeline import renderer
 
@@ -1432,6 +1446,8 @@ def render_breakdown(g, cam, cfg, reps=3):
     args = (g["xyz"][0], g["scaling"][0], g["rotation"][0], g["opacity"][0],
             shs)
     bg = torch.zeros(3, device=shs.device)
+    kernel = R._kernel_preprocess(shs.device, args, None)
+    preprocess = cuda_raster.preprocess if kernel else G.preprocess
 
     def wall(fn):
         out = fn()
@@ -1442,8 +1458,9 @@ def render_breakdown(g, cam, cfg, reps=3):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / reps * 1e3, out
 
-    pre_ms, _ = wall(lambda: G.preprocess(*args, cfg.max_sh_degree, cam,
-                                          cfg.kernel_size))
+    pre_ms, _ = wall(lambda: preprocess(*(a.contiguous() for a in args),
+                                        cfg.max_sh_degree, cam,
+                                        cfg.kernel_size))
     prep_ms, inp = wall(lambda: R.prepare(
         *args, cam, bg, sh_degree=cfg.max_sh_degree,
         kernel_size=cfg.kernel_size, pair_cap=cfg.pair_cap,
@@ -1451,7 +1468,8 @@ def render_breakdown(g, cam, cfg, reps=3):
     comp_ms, _ = wall(lambda: R.composite(inp))
     total_ms, _ = wall(lambda: renderer.render_gaussians(
         g, 0, cam.world_view, cam.full_proj, cam.cam_center, bg, cfg))
-    return {"preprocess_ms": pre_ms, "binning_ms": prep_ms - pre_ms,
+    return {"preprocess_route": "kernel" if kernel else "composed",
+            "preprocess_ms": pre_ms, "binning_ms": prep_ms - pre_ms,
             "composite_ms": comp_ms,
             "image_and_normals_ms": total_ms - prep_ms - comp_ms,
             "render_ms": total_ms}
@@ -1582,6 +1600,160 @@ def kernels_vs_plain(dev, seed):
     return flag, masks, given
 
 
+def bit_gaps(got, want):
+    """Elements of two equal-shaped tensors that differ bit for bit (NaN
+    and the sign of 0 included) and their largest gap."""
+    import torch
+    if got.dtype.is_floating_point:
+        same = (got.contiguous().view(torch.int32)
+                == want.contiguous().view(torch.int32))
+    else:
+        same = got == want
+    gap = (got.double() - want.double()).abs()[~same]
+    return {"differ": int((~same).sum()),
+            "max_gap": float(gap.max()) if gap.numel() else 0.0}
+
+
+def kernel_device_ms(fn, iters, name, flush=None):
+    """torch.profiler's device time a call of fn in the kernels whose name
+    holds `name` (all device work where `name` is None), and the kernels a
+    call, over `iters` calls; with `flush`, that tensor is overwritten
+    before each call, so each launch finds the L2 cold."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if flush is not None:
+                flush.fill_(1.0)
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and (name is None or name in e.name)]
+    return (sum(e.device_time_total for e in dev) / 1e3 / iters,
+            len(dev) / iters)
+
+
+def host_ms(fn, iters):
+    """The host's milliseconds a call of fn, the card not waited for."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
+
+
+def preprocess_vs_plain(dev):
+    """Phase preprocess_vs_plain: the preprocess kernel (cuda_raster.
+    preprocess, csrc/preprocess.cu) against its plain version (rasterize.
+    _preprocess_impl: the composed route, which prepare took before the
+    kernel) on card tensors, at the main path's three shapes and the two
+    edge clouds of tests/torch_cases.preprocess_cases: every field and
+    table the kernel writes equal bit for bit, and so the binning.  At the
+    three shapes, in PREPROCESS_TURNS turns of (plain, kernel, kernel,
+    plain): the kernel's device time a launch with the L2 flushed before
+    each (cold_ms, the one held to the bound) and back to back (warm_ms),
+    its CUDA-event and host times a wrapper call; the plain version's
+    device time and kernels a call, its host time a call and its
+    CUDA-event time a call (plain_ms: its host issues about 600 kernels one
+    at a time, so the events time the host).  The bound: the bytes the
+    route must read and write once (the five inputs; the two tables, the
+    depth and the radius) over PEAK_BYTES_PER_S.  Returns {shape: fields}."""
+    import collections
+    import torch
+    from f3d_gaus_torch.ops import binning as B
+    from f3d_gaus_torch.ops import cuda_raster
+    from f3d_gaus_torch.ops import rasterize as R
+    from f3d_gaus_torch.utils import profiling
+    import torch_cases
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    shapes = {}
+    for i, (name, cam, cloud, deg, ks) in enumerate(
+            torch_cases.preprocess_cases()):
+        t = [torch.from_numpy(a).to(dev) for a in cloud]
+        with profiling.record():
+            pre, feat, extra = cuda_raster.preprocess(*t, deg, cam, ks)
+            torch.cuda.synchronize()
+            n = launch_counts()[4]
+        require(n == 1, f"{n} preprocess launches for one call")
+        with torch.no_grad():
+            ref, ref_feat, ref_extra = R._preprocess_impl(*t, deg, cam, ks)
+        gaps = {f: bit_gaps(getattr(pre, f), getattr(ref, f))
+                for f in ("depths", "means2d", "radii", "conic", "rgb")}
+        gaps["feat"] = bit_gaps(feat, ref_feat)
+        gaps["extra"] = bit_gaps(extra, ref_extra)
+        w, h = cam.width, cam.height
+        cap = B.suggest_pair_cap(int(B.count_pairs(ref.means2d, ref.radii,
+                                                   w, h)))
+        got, want = (B.bin_gaussians(p.means2d, p.radii, p.depths, w, h, cap)
+                     for p in (pre, ref))
+        binning_equal = all(torch.equal(getattr(got, f), getattr(want, f))
+                            for f in ("point_list", "tile_start",
+                                      "tile_count", "num_pairs", "overflow"))
+        res = {"P": int(t[0].shape[0]), "sh_degree": deg, "width": w,
+               "kernel_size": ks, "valid": int(ref.valid.sum()),
+               "bits_differ": sum(g["differ"] for g in gaps.values()),
+               "max_gap": max(g["max_gap"] for g in gaps.values()),
+               "binning_equal": binning_equal}
+        require(res["bits_differ"] == 0 and binning_equal,
+                {name: {k: v for k, v in gaps.items() if v["differ"]}})
+        del pre, feat, extra, ref, ref_feat, ref_extra, got, want
+        if i < 3:
+            def kernel():
+                return cuda_raster.preprocess(*t, deg, cam, ks)
+
+            def plain():
+                with torch.no_grad():
+                    return R._preprocess_impl(*t, deg, cam, ks)
+            turns = collections.defaultdict(list)
+            for _ in range(PREPROCESS_TURNS):
+                for side in ("plain", "kernel", "kernel", "plain"):
+                    if side == "kernel":
+                        turns["cold_ms"].append(kernel_device_ms(
+                            kernel, TIMED_LAUNCHES, "preprocess_kernel",
+                            flush)[0])
+                        turns["warm_ms"].append(kernel_device_ms(
+                            kernel, TIMED_LAUNCHES, "preprocess_kernel")[0])
+                        turns["event_ms"].append(time_ms(kernel,
+                                                         TIMED_LAUNCHES))
+                        turns["host_ms"].append(host_ms(kernel,
+                                                        TIMED_LAUNCHES))
+                    else:
+                        ms, kernels = kernel_device_ms(plain, TIMED_LAUNCHES,
+                                                       None)
+                        turns["plain_device_ms"].append(ms)
+                        turns["plain_kernels"].append(kernels)
+                        turns["plain_ms"].append(time_ms(plain,
+                                                         TIMED_LAUNCHES))
+                        turns["plain_host_ms"].append(host_ms(
+                            plain, TIMED_LAUNCHES))
+            k = (deg + 1) ** 2
+            # reads: means, scales, quats, opacity, the (deg + 1)^2 SH
+            # coefficients used; writes: the two tables, depth and radius
+            nbytes = res["P"] * 4 * ((3 + 3 + 4 + 1 + 3 * k)
+                                     + (R.NFEAT + 5 + 1 + 1))
+            res.update({key: v for key, v in turns.items()})
+            res.update(ms=statistics.median(turns["cold_ms"]),
+                       plain_ms_median=statistics.median(turns["plain_ms"]),
+                       **bound(0, nbytes))
+            require(res["ms"] > 0, f"{name}: the profiler saw no "
+                    "preprocess_kernel on the device")
+            res["bound_share"] = res["bound_ms"] / res["ms"]
+        shapes[name] = res
+        del t
+        torch.cuda.empty_cache()
+    return shapes
+
+
 def serving_path(args, dev, card):
     """Phases 3 and 4: run_nvs_replanned at full width, its launches
     counted inside profiling.record(), then K1's timing at its shapes."""
@@ -1613,7 +1785,8 @@ def serving_path(args, dev, card):
                                       timings=timings)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches, launches_bwd, launches_decide, _ = launch_counts()
+        launches, launches_bwd, launches_decide, _, launches_pre = \
+            launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     P_px = cfg.resolution ** 2
@@ -1630,17 +1803,18 @@ def serving_path(args, dev, card):
     require(not bool(res.renders["overflow"].any())
             and not bool(res.agg_views["overflow"].any()),
             "overflow after replanning")
-    require(launches == launches_decide == (n_agg + n_nvs) * res.attempts > 0
-            and launches_bwd == 0,
+    require(launches == launches_decide == launches_pre
+            == (n_agg + n_nvs) * res.attempts > 0 and launches_bwd == 0,
             f"{launches} K1 / {launches_decide} decision / {launches_bwd} K2 "
-            f"launches for {res.attempts} attempts")
+            f"/ {launches_pre} preprocess launches for {res.attempts} "
+            "attempts")
     emit("main_path", card=card, config="PipelineConfig()",
          num_nvs_views=cfg.num_nvs_views, params=n_params,
          attempts=res.attempts, replans=replans,
          caps={"pair_cap": res.cfg.pair_cap,
                "max_per_tile": res.cfg.max_per_tile},
          kernel_launches=launches, decide_launches=launches_decide,
-         wall_s=wall_s,
+         preprocess_launches=launches_pre, wall_s=wall_s,
          stage_s_last_attempt=timings, peak_allocated_bytes=peak,
          merged_points=int(res.merged["xyz"].shape[1]))
 
@@ -1676,8 +1850,8 @@ def serving_path(args, dev, card):
     emit("band_vs_plain", card=card, tol=BAND_TOL_TEXT.format(
         held=f"K1 the anchor, K2 held_bwd on >= {NVS_ROWS} of rows (the "
              "full frame too)"), **bands)
-    return ((launches, launches_decide), shapes, (n_nvs, n_agg + n_nvs),
-            bands)
+    return ((launches, launches_decide, launches_pre), shapes,
+            (n_nvs, n_agg + n_nvs), bands)
 
 
 def make_towers(seed, dev):
@@ -1991,7 +2165,7 @@ def training_path(args, dev, card):
     with profiling.record():
         t_start = time.perf_counter()
         while len(steps) < TRAIN_STEPS:
-            f0, b0, d0, _ = launch_counts()
+            f0, b0, d0, *_ = launch_counts()
             timings = {}
             t0 = time.perf_counter()
             try:
@@ -2013,7 +2187,7 @@ def training_path(args, dev, card):
                     and {"loss_perceptual", "loss_clip"} <= set(terms), terms)
             require(not bool(aux["overflow"].any()),
                     "overflow in an applied step")
-            k1, k2, kd, _ = launch_counts()
+            k1, k2, kd, *_ = launch_counts()
             k1, k2, kd = k1 - f0, k2 - b0, kd - d0
             require(k1 == k2 == 3 * B and kd == 6 * B,
                     f"step launches K1 {k1}, K2 {k2}, decision {kd}, B {B}")
@@ -2021,8 +2195,10 @@ def training_path(args, dev, card):
                           **{f"{k}_s": v for k, v in timings.items()}})
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t_start
-        launches = launch_counts()[:3]
+        launches, pre_launches = launch_counts()[:3], launch_counts()[4]
     peak = torch.cuda.max_memory_allocated()
+    require(pre_launches == 0, f"{pre_launches} preprocess kernel launches "
+            "in training, whose every render is differentiated")
     require(launches == (3 * B * (len(steps) + len(attempts)),
                          3 * B * len(steps),
                          3 * B * (2 * len(steps) + len(attempts))),
@@ -2428,8 +2604,9 @@ def mesh_path(args, dev, card):
     numpy-made RGB-D image written as PNGs, with the raised-opacity
     weights, its launches counted inside profiling.record() and
     integrate's overflow count set to 0 just before it.  Requires a
-    non-empty mesh that reads back, no truncated view and 129 x (1 + 8)
-    field-query launches."""
+    non-empty mesh that reads back, no truncated view, 129 x (1 + 8)
+    field-query launches and one K1, decision pass and preprocess launch a
+    render."""
     import contextlib
     import io
     import shutil
@@ -2465,7 +2642,7 @@ def mesh_path(args, dev, card):
         wall_s = time.perf_counter() - t0
         n = launch_counts()
     launches = {"integrate": n[3], "raster_fwd": n[0], "gof_decide": n[2],
-                "raster_bwd": n[1]}
+                "raster_bwd": n[1], "preprocess": n[4]}
     overflow_views = TI.overflow_views
     peak = torch.cuda.max_memory_allocated()
     lines = log.getvalue().splitlines()
@@ -2482,7 +2659,8 @@ def mesh_path(args, dev, card):
             and stats["counts"]["faces"] == len(faces),
             f"mesh {v.shape} {faces.shape}")
     require(launches["integrate"] == n_views * (1 + MESH_STEPS)
-            and launches["raster_fwd"] == launches["gof_decide"] == n_renders
+            and launches["raster_fwd"] == launches["gof_decide"]
+            == launches["preprocess"] == n_renders
             and launches["raster_bwd"] == 0, launches)
     emit("mesh_path", card=card, config="PipelineConfig()",
          weights="seeded EDM init, out.bias[3] = 1.0 (opacity logit)",
@@ -3274,8 +3452,12 @@ def main(argv=None) -> int:
     build(card)
     flagship_bwd, masks, given = kernels_vs_plain(dev, args.seed)
     integrate_small_err = integrate_vs_plain(dev, args.seed)
-    (serve_k1, serve_decide), fwd_shapes, (n_nvs, n_render), nvs_bands = \
-        serving_path(args, dev, card)
+    pre_shapes = preprocess_vs_plain(dev)
+    for name, res in pre_shapes.items():
+        emit("preprocess_vs_plain", card=card, case=name,
+             tol="equal bit for bit, and the binning", **res)
+    (serve_k1, serve_decide, serve_pre), fwd_shapes, (n_nvs, n_render), \
+        nvs_bands = serving_path(args, dev, card)
     masks += [v["mask"] for v in fwd_shapes.values()]
     mesh = mesh_path(args, dev, card)
     field = integrate_timing(mesh, args, dev, card)
@@ -3298,6 +3480,7 @@ def main(argv=None) -> int:
     bwd_shapes["per_scene"] = scene_bwd
 
     nvs, cano = fwd_shapes["nvs"], bwd_shapes["canonical"]
+    pre = pre_shapes["orbit_589824"]
     given_note = (f"; given the decision pass's mask, on {len(given)} inputs "
                   "(flagship, 4 training renders; the per-scene render is "
                   "held against the plain version in f64, phase "
@@ -3438,6 +3621,38 @@ def main(argv=None) -> int:
         "rejected_share": field["rejected_share"],
         "escaped_share": field["escaped_share"],
         "lane_efficiency": field["plan_shape"]["lane_efficiency"],
+    }, {
+        "name": "preprocess", "route": "cuda",
+        "source": csrc + "preprocess.cu",
+        "replaces": "no TPU kernel: the XLA code of f3d_gaus_tpu/core/"
+                    "gaussians.py:preprocess and the feature expansion of "
+                    "f3d_gaus_tpu/ops/rasterize.py, which XLA fuses",
+        "launches": serve_pre + mesh["launches"]["preprocess"],
+        "launches_by_path": {"serving": serve_pre, "training": 0,
+                             "mesh": mesh["launches"]["preprocess"]},
+        "max_abs_err": max(v["max_gap"] for v in pre_shapes.values()),
+        "ms": pre["ms"], "plain_ms": pre["plain_ms_median"],
+        "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+        "library_ms": None,
+        "at": f"orbit view of a request's merged set, P={pre['P']}, SH "
+              f"degree {pre['sh_degree']} ({n_nvs} of {n_render} serving "
+              "launches per attempt; none in training, whose renders are "
+              "differentiated); ms is the kernel's device time a launch "
+              "with the L2 flushed before it (warm_ms back to back); "
+              "plain_ms the composed route's CUDA-event time a call, which "
+              "its host sets (plain_device_ms its kernels' device time); "
+              "bound_ms the bytes read and written once; max_abs_err over "
+              f"every written field and table at {len(pre_shapes)} clouds, "
+              "the binning equal too",
+        "shapes": {k: {f: v[f] for f in (
+            "P", "sh_degree", "ms", "plain_ms_median", "bound_ms",
+            "bound_share")} | {
+                "warm_ms": statistics.median(v["warm_ms"]),
+                "plain_device_ms": statistics.median(v["plain_device_ms"]),
+                "plain_kernels": statistics.median(v["plain_kernels"]),
+                "host_ms": statistics.median(v["host_ms"]),
+                "plain_host_ms": statistics.median(v["plain_host_ms"])}
+            for k, v in pre_shapes.items() if "ms" in v},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

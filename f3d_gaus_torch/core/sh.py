@@ -61,8 +61,11 @@ def sh_color_from_gaussians(deg: int, shs: torch.Tensor, means: torch.Tensor,
     dirs = means - campos
     # smoothed norm: a Gaussian AT the camera (unet_depth 0 in the cycle
     # feed) has |dirs| = 0; sqrt(|d|^2 + eps) keeps the value finite (such
-    # points are frustum-culled downstream), as in the JAX package
-    norm = torch.sqrt(torch.sum(dirs * dirs, dim=-1, keepdim=True) + 1e-16)
+    # points are frustum-culled downstream), as in the JAX package.  |d|^2
+    # is summed left to right, written out so that the order is this
+    # code's and not a reduction's (csrc/preprocess.cu adds in this order)
+    sq = dirs * dirs
+    norm = torch.sqrt(sq[..., 0:1] + sq[..., 1:2] + sq[..., 2:3] + 1e-16)
     dirs = dirs / norm
     raw = eval_sh(deg, shs, dirs)
     return max_tie(raw, 0.0), raw < 0

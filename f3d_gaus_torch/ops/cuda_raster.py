@@ -1,8 +1,10 @@
 """The kernels on the card: loader and launch wrappers of the compositing
 kernels csrc/gof_decide.cu, csrc/raster_fwd.cu and csrc/raster_bwd.cu,
 which all include csrc/gof_pair.cuh (counterpart of
-f3d_gaus_tpu/ops/pallas_raster.py), and of the opacity-field query
-csrc/integrate.cu (counterpart of f3d_gaus_tpu/ops/integrate.py).
+f3d_gaus_tpu/ops/pallas_raster.py), of the opacity-field query
+csrc/integrate.cu (counterpart of f3d_gaus_tpu/ops/integrate.py), and of
+the preprocess of an undifferentiated render csrc/preprocess.cu (no
+counterpart: XLA fuses that code for the JAX package).
 
 Each kernel source is compiled with nvcc for sm_90a into a shared library
 with a plain C interface at the first CUDA call (all at once, one nvcc
@@ -18,11 +20,16 @@ tensors.  rasterize.composite picks between them and the plain PyTorch
 versions (rasterize._contrib_mask_impl, _composite_fwd_impl,
 _composite_bwd_impl).  `integrate` launches the field query; ops/
 integrate.py picks between it and its plain version (_alpha_impl).
+`preprocess` launches the per-Gaussian preprocess and writes the tables
+compositing reads; rasterize.prepare takes it for CUDA tensors that no
+gradient flows through, and its plain version (rasterize._preprocess_impl)
+for CPU tensors.
 A band of a frame (rasterize.render(tile_rows=...)) launches the same
 kernels with the statics' row_off, the global tile row of the band's
 first row; the rays keep the full frame's half width and height.
 While tracing is on (utils.profiling) each launch counts under
-`launches.decide`, `launches.fwd`, `launches.bwd` or `launches.integrate`.
+`launches.decide`, `launches.fwd`, `launches.bwd`, `launches.integrate` or
+`launches.preprocess`.
 """
 from __future__ import annotations
 
@@ -33,18 +40,22 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
+from ..core import gaussians as G
 from ..utils import profiling
 from . import rasterize as R
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {"decide": CSRC / "gof_decide.cu", "fwd": CSRC / "raster_fwd.cu",
-           "bwd": CSRC / "raster_bwd.cu", "integrate": CSRC / "integrate.cu"}
+           "bwd": CSRC / "raster_bwd.cu", "integrate": CSRC / "integrate.cu",
+           "preprocess": CSRC / "preprocess.cu"}
 # each library's C entry points, in the order its source defines them
 ENTRY = {"decide": ("f3d_gof_decide",), "fwd": ("f3d_raster_fwd",),
          "bwd": ("f3d_raster_bwd",),
-         "integrate": ("f3d_integrate_prep", "f3d_integrate")}
+         "integrate": ("f3d_integrate_prep", "f3d_integrate"),
+         "preprocess": ("f3d_preprocess",)}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -94,14 +105,16 @@ _ARGTYPES = {   # by entry point
                            _P, _P],
     "f3d_integrate": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I,
                       _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "f3d_preprocess": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                       _P, _P],
 }
 
 
 def load(rebuild: bool = False) -> dict:
     """Build (once per build_key, or anew with `rebuild`) and load the
     kernel libraries: {'decide': CDLL, 'fwd': CDLL, 'bwd': CDLL,
-    'integrate': CDLL}.  The nvcc runs go in parallel; any failure raises
-    with its log."""
+    'integrate': CDLL, 'preprocess': CDLL}.  The nvcc runs go in parallel;
+    any failure raises with its log."""
     global _libs, build_log
     if _libs is not None and not rebuild:
         return _libs
@@ -392,3 +405,87 @@ def _integrate_launch(rows, keys, perm, point_list, tile_start, tile_count,
     if err != 0:
         raise RuntimeError(f"integrate kernel launch failed: CUDA error {err}")
     return out
+
+
+CAMERA_FLOATS = 43   # csrc/preprocess.cu:kCameraFloats
+
+
+def camera_scalars(camera, kernel_size: float = 0.0,
+                   scale_modifier: float = 1.0) -> list:
+    """The camera constants of core.gaussians.preprocess as the f32 values
+    its arithmetic uses, in csrc/preprocess.cu's `Camera` order:
+    world_view and full_proj (row-major), cam_center, focal_x, focal_y,
+    the clip limits 1.3 tan_fov, kernel_size, scale_modifier, width and
+    height.  Each is the composed route's own expression, rounded to f32
+    where PyTorch rounds a Python scalar (round to nearest)."""
+    def f32(x):
+        return float(np.float32(x))
+    mats = [np.asarray(m, np.float32).reshape(-1) for m in
+            (camera.world_view, camera.full_proj, camera.cam_center)]
+    return ([float(v) for m in mats for v in m]
+            + [f32(v) for v in (camera.focal_x, camera.focal_y,
+                                1.3 * camera.tan_fovx, 1.3 * camera.tan_fovy,
+                                kernel_size, scale_modifier, camera.width,
+                                camera.height)])
+
+
+def preprocess(means, scales, quats, opacities, shs, sh_degree: int, camera,
+               kernel_size: float = 0.0, scale_modifier: float = 1.0):
+    """The preprocess of a render that no gradient flows through, in one
+    launch of csrc/preprocess.cu: (pre, feat, extra), the (P, NFEAT)
+    feature table of _all_features (its opacity column the value of
+    prepare's opa), the (P, 5) conic | means2d table and a core.gaussians.
+    Preprocessed of what a render reads besides them, bit for bit the
+    composed route's: depths, radii (0 where not valid), and means2d and
+    conic (views of `extra`) and rgb (a view of `feat`); opa_coef, clamped,
+    v2g, v2g_mb and valid are None (the feature table holds v2g_mb and the
+    opacity; the clamp mask serves only a backward).  CPU tensors take the
+    plain version, rasterize._preprocess_impl, which fills every field;
+    otherwise all five must be CUDA tensors, float32 and contiguous: means
+    and scales (P, 3), quats (P, 4), opacities P values, shs (P, K, 3) with
+    K >= (sh_degree + 1)^2, sh_degree 0-3.  No host sync: the camera goes
+    by value in the launch's arguments."""
+    if not any(t.is_cuda for t in (means, scales, quats, opacities, shs)):
+        return R._preprocess_impl(means, scales, quats, opacities, shs,
+                                  sh_degree, camera, kernel_size,
+                                  scale_modifier)
+    P = means.shape[0]
+    if not 0 <= sh_degree <= 3:
+        raise ValueError(f"sh_degree must be 0-3, got {sh_degree}")
+    _check("means", means, torch.float32, (P, 3))
+    _check("scales", scales, torch.float32, (P, 3))
+    _check("quats", quats, torch.float32, (P, 4))
+    _check("opacities", opacities, torch.float32)
+    if opacities.numel() != P:
+        raise ValueError(f"opacities must hold {P} values, got "
+                         f"{tuple(opacities.shape)}")
+    _check("shs", shs, torch.float32)
+    if (shs.dim() != 3 or shs.shape[0] != P or shs.shape[2] != 3
+            or shs.shape[1] < (sh_degree + 1) ** 2):
+        raise ValueError(f"shs must be (P, >= {(sh_degree + 1) ** 2}, 3), "
+                         f"got {tuple(shs.shape)}")
+    dev = means.device
+    for name, t in (("scales", scales), ("quats", quats),
+                    ("opacities", opacities), ("shs", shs)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, means on {dev}")
+    feat = torch.empty((P, R.NFEAT), dtype=torch.float32, device=dev)
+    extra = torch.empty((P, 5), dtype=torch.float32, device=dev)
+    depths = torch.empty(P, dtype=torch.float32, device=dev)
+    radii = torch.empty(P, dtype=torch.int32, device=dev)
+    cam = (ctypes.c_float * CAMERA_FLOATS)(
+        *camera_scalars(camera, kernel_size, scale_modifier))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = load()["preprocess"].f3d_preprocess(
+        _device_index(dev), means.data_ptr(), scales.data_ptr(),
+        quats.data_ptr(), opacities.data_ptr(), shs.data_ptr(), P,
+        shs.shape[1] * 3, sh_degree, ctypes.addressof(cam), feat.data_ptr(),
+        extra.data_ptr(), depths.data_ptr(), radii.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"preprocess kernel launch failed: CUDA error {err}")
+    profiling.count("launches.preprocess")
+    pre = G.Preprocessed(
+        depths=depths, means2d=extra[:, 3:5], conic=extra[:, :3],
+        opa_coef=None, rgb=feat[:, R.ROW_RGB:R.ROW_RGB + 3], clamped=None,
+        v2g=None, v2g_mb=None, radii=radii, valid=None)
+    return pre, feat, extra

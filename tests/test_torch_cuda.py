@@ -1,6 +1,7 @@
 """The CUDA kernels (the decision pass csrc/gof_decide.cu,
 csrc/raster_fwd.cu, csrc/raster_bwd.cu, the field query
-csrc/integrate.cu) against their plain PyTorch versions on the card, one
+csrc/integrate.cu, the preprocess csrc/preprocess.cu) against their plain
+PyTorch versions on the card, one
 feed-forward training step, one per-scene training step, one mesh
 extraction and one serving request at planned caps there.  Needs a CUDA
 device and nvcc; skips elsewhere.
@@ -9,6 +10,8 @@ package's conftest:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -48,13 +51,13 @@ def _render(cam, cloud, bg, device, **kw):
 
 def launched(fn):
     """fn() counted by the program's profiling.record(): its output and the
-    launches of each kernel (decide, fwd, bwd, integrate)."""
+    launches of each kernel (decide, fwd, bwd, integrate, preprocess)."""
     with profiling.record():
         out = fn()
         torch.cuda.synchronize()
         c = profiling.snapshot()["counters"]
     return out, {k: c.get(f"launches.{k}", 0)
-                 for k in ("decide", "fwd", "bwd", "integrate")}
+                 for k in ("decide", "fwd", "bwd", "integrate", "preprocess")}
 
 
 @pytest.mark.parametrize("case", CASE_NAMES)
@@ -82,7 +85,7 @@ def test_decide_kernel_matches_plain_mask(cuda, case):
                                     if c[0] == case)
     inp = TR.prepare(*[torch.from_numpy(a).to(cuda) for a in cloud], cam,
                      torch.from_numpy(bg).to(cuda), **kw)
-    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
+    feat = TR._tables(inp)[0].detach()
     b, s = inp.binning, inp.statics
     slab = (b.point_list, b.tile_start, b.tile_count)
     k, n = launched(lambda: cuda_raster.decide(feat, *slab, s))
@@ -139,10 +142,10 @@ def _bwd_inputs(case, device, zero_qk=False):
                                     if c[0] == case)
     inp = TR.prepare(*[torch.from_numpy(a).to(device) for a in cloud], cam,
                      torch.from_numpy(bg).to(device), **kw)
-    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
+    feat = TR._tables(inp)[0].detach()
     if zero_qk:
         feat = torch_cases.zero_qk(feat)
-    extra = torch.cat([inp.pre.conic, inp.pre.means2d], 1).detach()
+    extra = TR._tables(inp)[1].detach()
     b = inp.binning
     slab = (b.point_list, b.tile_start, b.tile_count, inp.bg)
     out, aux = cuda_raster.composite_fwd(feat, *slab, inp.statics)
@@ -214,8 +217,7 @@ def test_band_kernels_match_plain_band(cuda, case, tile_rows):
     s = inp.statics
     assert s.row_off == tile_rows[0] > 0 and s.grid_y == tile_rows[1]
     assert s.height == cam.height
-    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
-    extra = torch.cat([inp.pre.conic, inp.pre.means2d], 1).detach()
+    feat, extra = (t.detach() for t in TR._tables(inp))
     b = inp.binning
     slab = (b.point_list, b.tile_start, b.tile_count)
     k = cuda_raster.decide(feat, *slab, s)
@@ -260,7 +262,8 @@ def test_bwd_wrapper_rejects_bad_inputs(cuda):
 
 def test_train_step_on_the_card(cuda):
     """One feed-forward step at the tiny config of tests/test_torch_train.py:
-    every render goes through both kernels (3 per image)."""
+    every render goes through both kernels (3 per image), and, being
+    differentiated, through the composed preprocess."""
     cfg = TCfg.PipelineConfig(resolution=32, base_dim=32, num_blocks=1,
                               attn_resolutions=(8,), model_channels=32,
                               pair_cap=1 << 14, max_per_tile=2048, chunk=128)
@@ -273,6 +276,7 @@ def test_train_step_on_the_card(cuda):
     (loss, aux), n = launched(lambda: TF.train_step(state, cfg, batch, pack))
     assert np.isfinite(loss.item()) and state.step == 1
     assert n["fwd"] == 6 and n["bwd"] == 6 and n["decide"] == 12
+    assert n["preprocess"] == 0       # every render is differentiated
     for p in state.model.parameters():
         assert torch.isfinite(p.grad).all()
 
@@ -430,8 +434,7 @@ def test_kernels_on_an_odd_frame_with_dead_rows(cuda):
     torch.testing.assert_close(ka.final_T, pa.final_T, atol=1e-4, rtol=0)
     assert torch.equal(ka.last_pos, pa.last_pos)
     assert torch.equal(ka.max_pos, pa.max_pos)
-    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
-    extra = torch.cat([inp.pre.conic, inp.pre.means2d], 1).detach()
+    feat, extra = (t.detach() for t in TR._tables(inp))
     b = inp.binning
     slab = (b.point_list, b.tile_start, b.tile_count, inp.bg)
     g = np.random.default_rng(4).normal(size=tuple(ko.shape)).astype(np.float32)
@@ -467,7 +470,7 @@ def test_per_scene_train_step_on_the_card(cuda):
     CPU, at SH degree 3 with dead rows: the loss within 1e-5 relative,
     the visible rows and radii equal, each group's gradient (through the
     first moments) within 5e-3 x max |g|; one K1, one K2 and two decision
-    launches."""
+    launches, and the composed preprocess."""
     rng = np.random.default_rng(6)
     cfg = TPS.PerSceneConfig(sh_degree=3, pair_cap=1 << 12, max_per_tile=128,
                              chunk=32, cap_bucket=128)
@@ -496,6 +499,7 @@ def test_per_scene_train_step_on_the_card(cuda):
         results.append(out)
         if dev.type == "cuda":
             assert (n["fwd"], n["bwd"], n["decide"]) == (1, 1, 2)
+            assert n["preprocess"] == 0
     (_, k_opt, k_stats, k_aux), (_, p_opt, p_stats, p_aux) = results
     assert not bool(k_aux["overflow"])
     torch.testing.assert_close(k_aux["loss"].cpu(), p_aux["loss"], rtol=1e-5,
@@ -568,3 +572,132 @@ def test_planned_request_equals_doubled_caps(cuda):
     want_cap = -(-TB.suggest_pair_cap(pairs) // 256) * 256
     assert res.cfg.pair_cap == want_cap < static.pair_cap
     assert res.cfg.max_per_tile == -(-tile // 256) * 256
+
+
+PREPROCESS_CASES = ("orbit_589824", "aggregation_65536", "gslrm_1048576",
+                    "edges_sh3", "edges_sh2_k0")
+PRE_FIELDS = ("depths", "means2d", "radii", "conic", "rgb")
+
+
+@functools.lru_cache(maxsize=1)
+def _preprocess_cases():
+    return {c[0]: c[1:] for c in torch_cases.preprocess_cases()}
+
+
+def _bit_gaps(got, want):
+    """{} if got and want are equal bit for bit (NaN and the sign of 0
+    included), else {'differ': elements, 'max_gap': largest |got - want|}."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if got.dtype.is_floating_point:
+        same = (got.contiguous().view(torch.int32)
+                == want.contiguous().view(torch.int32))
+    else:
+        same = got == want
+    if bool(same.all()):
+        return {}
+    gap = (got.double() - want.double()).abs()[~same]
+    return {"differ": int((~same).sum()), "max_gap": float(gap.max())}
+
+
+@pytest.mark.parametrize("case", PREPROCESS_CASES)
+def test_preprocess_kernel_matches_composed(cuda, case):
+    """The preprocess kernel (cuda_raster.preprocess) against the composed
+    route (rasterize._preprocess_impl) on the card, bit for bit: every
+    Preprocessed field it writes, the feature table column by column (which
+    holds v2g_mb and the opacity times its coefficient) and the conic |
+    means2d table; so the binning of the two is equal too."""
+    cam, cloud, deg, ks = _preprocess_cases()[case]
+    t = [torch.from_numpy(a).to(cuda) for a in cloud]
+    (pre, feat, extra), n = launched(
+        lambda: cuda_raster.preprocess(*t, deg, cam, ks))
+    assert n["preprocess"] == 1
+    ref, ref_feat, ref_extra = TR._preprocess_impl(*t, deg, cam, ks)
+    gaps = {f: _bit_gaps(getattr(pre, f), getattr(ref, f))
+            for f in PRE_FIELDS}
+    gaps.update({f"feat[{j}]": _bit_gaps(feat[:, j], ref_feat[:, j])
+                 for j in range(TR.NFEAT)})
+    gaps["extra"] = _bit_gaps(extra, ref_extra)
+    assert not any(gaps.values()), {k: v for k, v in gaps.items() if v}
+    assert all(getattr(pre, f) is None for f in ("opa_coef", "clamped", "v2g",
+                                                 "v2g_mb", "valid"))
+    assert feat.is_contiguous() and extra.is_contiguous()
+    n_valid = int(ref.valid.sum())
+    assert 0 < n_valid and (n_valid < len(ref.valid)) == case.startswith(
+        "edges")
+    w, h = cam.width, cam.height
+    cap = TB.suggest_pair_cap(int(TB.count_pairs(ref.means2d, ref.radii, w,
+                                                 h)))
+    got, want = (TB.bin_gaussians(p.means2d, p.radii, p.depths, w, h, cap)
+                 for p in (pre, ref))
+    for f in ("point_list", "tile_start", "tile_count", "num_pairs",
+              "overflow"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_preprocess_route_follows_grad_mode(cuda):
+    """prepare takes the preprocess kernel for a render no gradient flows
+    through (one launch) and the composed route for one that is
+    differentiated or given colours (no launch); the three renders are
+    equal, and the differentiated one has its gradient."""
+    _, cam, cloud, bg, kw = torch_cases.small_cases()[0]
+    t = [torch.from_numpy(a).to(cuda) for a in cloud]
+    bg = torch.from_numpy(bg).to(cuda)
+    with torch.no_grad():
+        k, n = launched(lambda: TR.render(*t, cam, bg, **kw))
+    assert n["preprocess"] == 1 and n["fwd"] == 1
+    leaves = [a.clone().requires_grad_() for a in t]
+    g, n = launched(lambda: TR.render(*leaves, cam, bg, **kw))
+    assert n["preprocess"] == 0 and n["fwd"] == 1
+    rgb = TR.prepare(*t, cam, bg, **kw).rgb
+    c, n = launched(lambda: TR.render(*t, cam, bg, colors_precomp=rgb, **kw))
+    assert n["preprocess"] == 0
+    for other in (g, c):
+        assert torch.equal(k["out9"], other["out9"].detach())
+        assert torch.equal(k["radii"], other["radii"])
+    g["out9"].sum().backward()
+    assert all(a.grad is not None and torch.isfinite(a.grad).all()
+               for a in leaves)
+
+
+def test_preprocess_wrapper_rejects_bad_inputs(cuda):
+    _, cam, cloud, _, _ = torch_cases.small_cases()[0]
+    t = [torch.from_numpy(a).to(cuda) for a in cloud]
+    bad = [t[0].double(), t[0][:-1], t[0].t().contiguous().t(), t[0].cpu()]
+    for means in bad:
+        with pytest.raises(ValueError):
+            cuda_raster.preprocess(means, *t[1:], 1, cam)
+    with pytest.raises(ValueError):           # 4 coefficients: degree 1
+        cuda_raster.preprocess(*t, 2, cam)
+    with pytest.raises(ValueError):
+        cuda_raster.preprocess(*t[:3], t[3][:-1], t[4], 1, cam)
+
+
+def test_request_preprocess_kernel_equals_composed(cuda, monkeypatch):
+    """One planned serving request at PipelineConfig() launches the
+    preprocess kernel once a render (8 aggregation and 129 orbit views)
+    and gives what the composed route gives, bit for bit: the renders,
+    the merged Gaussians and the aggregation renders."""
+    cfg = TCfg.PipelineConfig()
+    model = TP.GaussianPredictor(cfg.predictor_config(),
+                                 torch.Generator().manual_seed(0)).to(cuda)
+    cams = TD.canonical_cameras(cfg)
+    rng = np.random.default_rng(1)
+    r = cfg.resolution
+    images = rng.uniform(size=(1, r, r, 3)).astype(np.float32)
+    depth = rng.uniform(6.667, 8.667, size=(1, r, r)).astype(np.float32)
+
+    def request():
+        return TC.run_nvs_replanned(model, cfg, cams, images, depth,
+                                    device=cuda)
+    res, n = launched(request)
+    views = sum(len(c(cfg, cams.inverse_first_camera).world_view)
+                for c in (TC.aggregation_cameras, TC.nvs_cameras))
+    assert res.attempts == 1 and views == 137
+    assert n["preprocess"] == views
+    monkeypatch.setattr(TR, "_kernel_preprocess", lambda *a: False)
+    ref, n = launched(request)
+    assert n["preprocess"] == 0 and ref.attempts == 1
+    for got, want in ((res.renders, ref.renders), (res.merged, ref.merged),
+                      (res.agg_views, ref.agg_views)):
+        for k in want:
+            assert torch.equal(got[k], want[k]), k

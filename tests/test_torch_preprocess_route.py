@@ -1,0 +1,201 @@
+"""Which preprocess rasterize.prepare takes, on the CPU.
+
+prepare takes the preprocess kernel (cuda_raster.preprocess, csrc/
+preprocess.cu) only for CUDA tensors that autograd records nothing of, with
+no colors_precomp; everything else composes core.gaussians.preprocess, as
+before the kernel.  Here: the routing predicate, prepare's values on each
+composed route (CPU tensors, inputs that require grad, given colours) and
+that none counts a launch, the kernel's plain version and the tables
+composite takes from it (and refuses once a field they hold was replaced),
+the f32 camera scalars the kernel is given and the order it sums |d|^2 in.
+The kernel itself is held against the composed route on the card in
+tests/test_torch_cuda.py."""
+import numpy as np
+import pytest
+import torch
+
+from f3d_gaus_torch.core import cameras
+from f3d_gaus_torch.core import gaussians as G
+from f3d_gaus_torch.ops import cuda_raster
+from f3d_gaus_torch.ops import rasterize as TR
+from f3d_gaus_torch.utils import profiling
+import torch_cases  # tests/ is on sys.path under pytest (rootdir-less dir)
+
+torch.set_num_threads(1)
+
+CUDA = torch.device("cuda")     # a device object only: no card is needed
+
+
+def _case():
+    _, cam, cloud, bg, kw = torch_cases.small_cases()[0]
+    return cam, [torch.from_numpy(a) for a in cloud], torch.from_numpy(bg), kw
+
+
+def test_kernel_route_predicate():
+    """The kernel route needs a CUDA device, no colours, and nothing for
+    autograd to record: grad mode off or no input that requires grad."""
+    _, t, _, _ = _case()
+    leaf = [t[0].clone().requires_grad_()] + t[1:]
+    assert TR._kernel_preprocess(CUDA, t, None)
+    assert not TR._kernel_preprocess(torch.device("cpu"), t, None)
+    assert not TR._kernel_preprocess(CUDA, t, t[0])
+    for i in range(5):
+        one = list(t)
+        one[i] = one[i].clone().requires_grad_()
+        assert not TR._kernel_preprocess(CUDA, one, None), i
+    with torch.no_grad():
+        assert TR._kernel_preprocess(CUDA, leaf, None)
+        assert not TR._kernel_preprocess(CUDA, leaf, t[0])
+
+
+@pytest.mark.parametrize("route", ["cpu", "requires_grad", "colors_precomp"])
+def test_prepare_composes_with_todays_values(route):
+    """On each route that composes, prepare hands composite no tables, its
+    preprocess is core.gaussians.preprocess's, its rgb and opa are what
+    composite builds the feature table from, and no preprocess launch is
+    counted."""
+    cam, t, bg, kw = _case()
+    colors = None
+    if route == "requires_grad":
+        t = [a.clone().requires_grad_() for a in t]
+    elif route == "colors_precomp":
+        colors = torch.rand((t[0].shape[0], 3),
+                            generator=torch.Generator().manual_seed(0))
+    with profiling.record():
+        inp = TR.prepare(*t, cam, bg, colors_precomp=colors, **kw)
+        counters = profiling.snapshot()["counters"]
+    assert "launches.preprocess" not in counters
+    assert inp.tables is None
+    ref = G.preprocess(*t, 1, cam)
+    for f in ("depths", "means2d", "radii", "conic", "opa_coef", "v2g_mb"):
+        assert torch.equal(getattr(inp.pre, f), getattr(ref, f)), f
+    assert torch.equal(inp.rgb, ref.rgb if colors is None else colors)
+    opa_flat = t[3].reshape(-1)
+    assert torch.equal(inp.opa, opa_flat + (ref.opa_coef - opa_flat))
+    assert inp.opa.requires_grad == (route == "requires_grad")
+
+
+def _kernel_shaped(inp, feat, extra):
+    """`inp` as prepare hands it on the kernel route: the tables, with rgb,
+    opa, pre.conic and pre.means2d views of them."""
+    rgb = feat[:, TR.ROW_RGB:TR.ROW_RGB + 3]
+    return inp._replace(
+        pre=inp.pre._replace(conic=extra[:, :3], means2d=extra[:, 3:5],
+                             rgb=rgb),
+        rgb=rgb, opa=feat[:, TR.ROW_OPA], tables=(feat, extra))
+
+
+def test_plain_version_and_the_tables_composite_takes():
+    """cuda_raster.preprocess on CPU tensors is the plain version: the
+    composed preprocess, _all_features of prepare's rgb and opa, and the
+    conic | means2d table, counting no launch.  composite renders the
+    same image from those tables as from the Preprocessed it builds them
+    from, and takes the tables it is handed (an opacity column of 0
+    leaves only the background)."""
+    cam, t, bg, kw = _case()
+    with profiling.record():
+        pre, feat, extra = cuda_raster.preprocess(*t, 1, cam)
+        counters = profiling.snapshot()["counters"]
+    assert "launches.preprocess" not in counters
+    inp = TR.prepare(*t, cam, bg, **kw)
+    for f in ("depths", "means2d", "radii", "conic", "rgb", "v2g_mb"):
+        assert torch.equal(getattr(pre, f), getattr(inp.pre, f)), f
+    assert torch.equal(feat, cuda_raster._all_features(inp.pre.v2g_mb,
+                                                        inp.rgb, inp.opa))
+    assert torch.equal(extra, torch.cat([inp.pre.conic, inp.pre.means2d], 1))
+    out, _ = TR.composite(inp)
+    got, _ = TR.composite(_kernel_shaped(inp, feat, extra))
+    assert torch.equal(out, got) and float(out[..., 7].max()) > 0.1
+    clear = feat.clone()
+    clear[:, TR.ROW_OPA] = 0.0
+    empty, aux = TR.composite(_kernel_shaped(inp, clear, extra))
+    assert float(empty[..., 7].abs().max()) == 0.0
+    assert bool((aux.final_T == 1).all())
+
+
+@pytest.mark.parametrize("field", ["rgb", "opa", "conic", "means2d"])
+def test_composite_refuses_a_field_replaced_over_the_tables(field):
+    """On the kernel route the tables are the one source of rgb, opa, conic
+    and means2d: a field replaced after prepare (even by equal values) is
+    not silently passed over; composite raises, naming it."""
+    cam, t, bg, kw = _case()
+    _, feat, extra = cuda_raster.preprocess(*t, 1, cam)
+    inp = _kernel_shaped(TR.prepare(*t, cam, bg, **kw), feat, extra)
+    TR.composite(inp)
+    if field in ("rgb", "opa"):
+        bad = inp._replace(**{field: getattr(inp, field).clone()})
+    else:
+        bad = inp._replace(pre=inp.pre._replace(
+            **{field: getattr(inp.pre, field).clone()}))
+    with pytest.raises(ValueError, match=field):
+        TR.composite(bad)
+
+
+def test_sh_direction_norm_sums_left_to_right(monkeypatch):
+    """The composed route's viewing directions (core/sh.py) divide by
+    sqrt((d0^2 + d1^2) + d2^2 + 1e-16) in f32, an order the code fixes
+    itself (csrc/preprocess.cu adds in it too): bit for bit d / torch.sqrt
+    of that sum evaluated in numpy's f32, one rounding an operation."""
+    from f3d_gaus_torch.core import sh as TSH
+    seen = []
+    eval_sh = TSH.eval_sh
+    monkeypatch.setattr(TSH, "eval_sh", lambda deg, shs, dirs: (
+        seen.append(dirs), eval_sh(deg, shs, dirs))[1])
+    rng = np.random.default_rng(3)
+    means = rng.normal(size=(4096, 3)).astype(np.float32) * 5
+    means[:4] = 0.0             # at the camera: |d| = 0
+    campos = np.float32([0.0, 0.0, 0.0])
+    shs = rng.normal(size=(4096, 4, 3)).astype(np.float32)
+    TSH.sh_color_from_gaussians(1, torch.from_numpy(shs),
+                                torch.from_numpy(means),
+                                torch.from_numpy(campos))
+    d = means - campos
+    sq = d * d
+    n2 = sq[:, 0:1] + sq[:, 1:2] + sq[:, 2:3] + np.float32(1e-16)
+    assert n2.dtype == np.float32
+    want = torch.from_numpy(d) / torch.sqrt(torch.from_numpy(n2))
+    assert torch.equal(seen[0].view(torch.int32), want.view(torch.int32))
+    # the order matters on these inputs: another moves some of the sums
+    other = sq[:, 0:1] + sq[:, 2:3] + sq[:, 1:2] + np.float32(1e-16)
+    assert (other != n2).any()
+
+
+def _composed_scalars(camera, kernel_size, scale_modifier):
+    """The f32 camera constants the composed preprocess computes with, read
+    back from the operations that round them: _mat's entries, _scalar_over's
+    0-d tensors, max_tie's bounds and Python scalars in f32 arithmetic."""
+    one = torch.ones((), dtype=torch.float32)
+    mats = [v for m in (G._mat(camera.world_view), G._mat(camera.full_proj))
+            for row in m for v in row]
+    cc = torch.as_tensor(np.asarray(camera.cam_center, np.float32)).tolist()
+    return (torch.tensor(mats, dtype=torch.float32).tolist() + cc
+            + [torch.full((), camera.focal_x, dtype=torch.float32).item(),
+               torch.full((), camera.focal_y, dtype=torch.float32).item(),
+               one.new_full((), 1.3 * camera.tan_fovx).item(),
+               one.new_full((), 1.3 * camera.tan_fovy).item(),
+               (one * 0 + kernel_size).item(),
+               (one * scale_modifier).item(),
+               (one * camera.width).item(), (one * camera.height).item()])
+
+
+@pytest.mark.parametrize("kind", ["orbit", "float32_fov", "odd_frame"])
+def test_camera_scalars_match_the_composed_route(kind):
+    """cuda_raster.camera_scalars, the kernel's camera arguments, are the
+    f32 values of the composed route's own expressions, in
+    csrc/preprocess.cu's Camera order, for a field of view given as a
+    Python float or as an np.float32 and at an odd kernel_size and
+    scale_modifier."""
+    cam = torch_cases.orbit_camera(64, 48)
+    if kind == "float32_fov":
+        cam = cam._replace(tan_fovx=np.float32(0.1234567),
+                           tan_fovy=np.float32(0.0987654))
+    elif kind == "odd_frame":
+        cam = cameras.Camera(cam.world_view, cam.full_proj, cam.cam_center,
+                             333, 77, 0.31, 0.07)
+    ks, sm = (0.1, 0.7) if kind == "odd_frame" else (0.0, 1.0)
+    got = cuda_raster.camera_scalars(cam, ks, sm)
+    assert len(got) == cuda_raster.CAMERA_FLOATS
+    assert got == _composed_scalars(cam, ks, sm)
+    assert all(float(np.float32(v)) == v for v in got)
+    src = cuda_raster.SOURCES["preprocess"].read_text()
+    assert f"kCameraFloats = {cuda_raster.CAMERA_FLOATS};" in src

@@ -335,3 +335,62 @@ def turntable_views(azimuths, elevation=20.0, radius=4.03):
         c2w[:3, 1:3] *= -1
         out.append(np.linalg.inv(c2w).T)
     return np.stack(out)
+
+
+def turntable_camera(azimuth, res=512, fov_deg=39.5971132214912,
+                     znear=0.01, zfar=100.0):
+    """One turntable_views camera as a core.cameras.Camera at res^2 (GS-LRM's
+    512^2 orbit at its configuration's field of view)."""
+    wv = turntable_views([azimuth])[0].astype(np.float32)
+    fov = np.radians(fov_deg)
+    proj = cameras.projection_matrix(znear, zfar, fov, fov).T
+    full_proj = (wv @ proj).astype(np.float32)
+    center = np.linalg.inv(wv.astype(np.float64))[3, :3].astype(np.float32)
+    tan = float(np.tan(fov / 2))
+    return cameras.Camera(wv, full_proj, center, res, res, tan, tan)
+
+
+def preprocess_cases(seed=0):
+    """(name, camera, cloud, sh_degree, kernel_size) of the preprocess
+    kernel's tests: an orbit view of a 589,824-Gaussian set (a request's
+    merged set: 9 x 65,536) at 256^2, SH degree 1; an aggregation view at
+    65,536; 1,048,576 Gaussians about the origin at a 512^2 turntable
+    view, SH degree 0 (GS-LRM's orbit); and 4,096 Gaussians of which some
+    lie behind the near plane (view depth -1 to 0.2), some exactly at the
+    camera centre (|dirs| = 0), some have zero scales (a zero 2D
+    determinant at kernel_size 0, a zero low-pass coefficient above it),
+    some are thin, at SH degree 3 and kernel_size 0.3 and at SH degree 2
+    (of 16 coefficients a Gaussian) and kernel_size 0."""
+    from f3d_gaus_torch.pipeline import config, cycle, dataset
+    rng = np.random.default_rng(seed)
+    cfg = config.PipelineConfig()
+    inv_first = dataset.canonical_cameras(cfg).inverse_first_camera
+    r, tan = cfg.resolution, cfg.tan_fov
+    orbit = cycle.nvs_cameras(cfg, inv_first).camera(40, r, r, tan, tan)
+    agg = cycle.aggregation_cameras(cfg, inv_first).camera(3, r, r, tan, tan)
+    _, merged = bench_scene(rng, n=9 * 65536)
+    _, first = bench_scene(rng)
+
+    n = 1 << 20
+    lrm = (
+        (rng.normal(size=(n, 3)) * 0.5).astype(np.float32),
+        rng.uniform(0.002, 0.02, size=(n, 3)).astype(np.float32),
+        rng.normal(size=(n, 4)).astype(np.float32),
+        rng.uniform(0.01, 0.99, size=(n, 1)).astype(np.float32),
+        (rng.normal(size=(n, 1, 3)) * 0.5).astype(np.float32))
+    lrm[2][:] /= np.linalg.norm(lrm[2], axis=-1, keepdims=True)
+
+    cam = orbit_camera(64, 64)
+    edges = list(make_gaussian_cloud(rng, 4096, sh_degree=3,
+                                     scale_range=(0.001, 0.2)))
+    px, py = rng.uniform(-8, 72, size=(2, 512))
+    edges[0][:512] = [cam_point(cam, x, y, d) for x, y, d in
+                      zip(px, py, rng.uniform(-1.0, 0.2, 512))]
+    edges[0][512:544] = np.asarray(cam.cam_center, np.float32)
+    edges[1][544:640] = 0.0
+    edges[1][640:768, 0] = 1e-7
+    return [("orbit_589824", orbit, merged, 1, 0.0),
+            ("aggregation_65536", agg, first, 1, 0.0),
+            ("gslrm_1048576", turntable_camera(0.7), lrm, 0, 0.0),
+            ("edges_sh3", cam, tuple(edges), 3, 0.3),
+            ("edges_sh2_k0", cam, tuple(edges), 2, 0.0)]
