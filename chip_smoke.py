@@ -401,7 +401,7 @@ def pair_work(inp, last_pos=None):
     from f3d_gaus_torch.ops import rasterize as R
 
     s, bng = inp.statics, inp.binning
-    feat = R._tables(inp)[0]
+    feat = inp.feat
     dev = feat.device
     u, v = R._tile_rays(s, dev)
     C = s.chunk
@@ -478,8 +478,8 @@ def time_kernel(inp, iters, plain_iters, held=True):
     from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.ops import rasterize as R
 
-    pre, bng, s = inp.pre, inp.binning, inp.statics
-    feat = R._tables(inp)[0].detach()
+    bng, s = inp.binning, inp.statics
+    feat = inp.feat.detach()
     args = (bng.point_list, bng.tile_start, bng.tile_count, inp.bg)
     ms = time_ms(lambda: cuda_raster.composite_fwd(feat, *args, s), iters)
     mask = cuda_raster.decide(feat, *args[:3], s)
@@ -501,7 +501,7 @@ def time_kernel(inp, iters, plain_iters, held=True):
     # counts, and the 9 + 6 per-pixel outputs written once; the passes
     # apart also write (decision) or read (compositing) the mask words of
     # the windows, 4 bytes per 32 slots and pixel
-    ids = bng.point_list[bng.point_list < pre.radii.shape[0]]
+    ids = bng.point_list[bng.point_list < inp.radii.shape[0]]
     tiles = s.grid_x * s.grid_y
     in_bytes = (ids.numel() * 4 + int(torch.unique(ids).numel()) * R.NFEAT * 4
                 + 2 * tiles * 4)
@@ -513,7 +513,7 @@ def time_kernel(inp, iters, plain_iters, held=True):
         ("", decide_ops(work, "walked") + contrib_ops, in_bytes + out_bytes),
         ("decide_", decide_ops(work, "window"), in_bytes + mask_bytes),
         ("composite_", contrib_ops, in_bytes + mask_bytes + out_bytes))}
-    return dict(P=int(pre.radii.shape[0]), pairs=int(bng.num_pairs),
+    return dict(P=int(inp.radii.shape[0]), pairs=int(bng.num_pairs),
                 max_per_tile=s.max_per_tile, **work_fields(work),
                 bitwise_repeatable=bitwise, ms=ms,
                 decide_ms=decide_ms, composite_ms=composite_ms,
@@ -539,10 +539,11 @@ def bwd_inputs(inp, seed):
     from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.ops import rasterize as R
 
-    feat, extra = (t.detach() for t in R._tables(inp))
+    feat, extra = inp.feat.detach(), inp.extra.detach()
     b = inp.binning
     slab = (b.point_list, b.tile_start, b.tile_count, inp.bg)
     out, aux = cuda_raster.composite_fwd(feat, *slab, inp.statics)
+    aux = R.RenderAux(*aux)
     g = np.random.default_rng(seed).normal(size=tuple(out.shape))
     g[..., 7] = 0.0
     return feat, extra, slab, aux, torch.from_numpy(g.astype(np.float32)).to(
@@ -642,7 +643,7 @@ def alpha_error_bound(inp, mask, aux):
     from f3d_gaus_torch.ops import rasterize as R
 
     s, b = inp.statics, inp.binning
-    feat = R._tables(inp)[0].detach()
+    feat = inp.feat.detach()
     _, valid, wfeat, n = R._windows(feat, b.point_list, b.tile_start,
                                     b.tile_count, s)
     rays = tuple(x.double()[..., None] for x in R._tile_rays(s, feat.device))
@@ -691,7 +692,7 @@ def flip_margins(inp, aux):
     from f3d_gaus_torch.ops import rasterize as R
 
     s, b = inp.statics, inp.binning
-    feat = R._tables(inp)[0].detach()
+    feat = inp.feat.detach()
     P, dev = feat.shape[0], feat.device
     C = s.chunk
     gids, valid, wfeat, n = R._windows(feat, b.point_list, b.tile_start,
@@ -737,7 +738,7 @@ def compare_mask(inp, exact=True, plain=None):
     from f3d_gaus_torch.ops import rasterize as R
 
     s, b = inp.statics, inp.binning
-    feat = R._tables(inp)[0].detach()
+    feat = inp.feat.detach()
     slab = (b.point_list, b.tile_start, b.tile_count)
     k = cuda_raster.decide(feat, *slab, s)
     p = R._contrib_mask_impl(feat, *slab, s) if plain is None else plain
@@ -798,19 +799,28 @@ class Render(NamedTuple):
 
 def pulled_back(render, tile_rows, feat, d_feats):
     """Feature-row gradients d_feats (each (P, NFEAT)) pulled back through
-    cuda_raster._all_features and prepare's preprocess: for each, ([d
+    rasterize._all_features and prepare's preprocess: for each, ([d
     v2g_mb, d rgb, d opa], [d of the five inputs]) as (P, k) tensors.  The
-    feature table is remade from leaves of render.params and must equal
-    `feat`, the one the gradients are of.  The pull-back is in f32 (prepare
-    computes in f32): an f64 gradient is rounded to f32 first."""
+    feature table is remade from leaves of render.params (prepare's
+    inp.feat, the arguments of its _all_features taken by wrapping it) and
+    must equal `feat`, the one the gradients are of.  The pull-back is in
+    f32 (prepare computes in f32): an f64 gradient is rounded to f32
+    first."""
     import torch
-    from f3d_gaus_torch.ops import cuda_raster
+    from f3d_gaus_torch.ops import rasterize as R
 
     leaves = [p.detach().clone().requires_grad_() for p in render.params]
-    with torch.enable_grad():
-        inp = render.prep(*leaves, tile_rows=tile_rows)
-        mids = (inp.pre.v2g_mb, inp.rgb, inp.opa)
-        remade = cuda_raster._all_features(*mids)
+    mids, all_features = [], R._all_features
+
+    def taken(*args):
+        mids[:] = args
+        return all_features(*args)
+    R._all_features = taken
+    try:
+        with torch.enable_grad():
+            remade = render.prep(*leaves, tile_rows=tile_rows).feat
+    finally:
+        R._all_features = all_features
     require(torch.equal(remade.detach(), feat), "the remade feature table "
             "differs from the one K2 ran on")
     out = []
@@ -920,7 +930,7 @@ def tie_census(inp, aux):
     from f3d_gaus_torch.ops import rasterize as R
 
     s, b = inp.statics, inp.binning
-    feat = R._tables(inp)[0].detach()
+    feat = inp.feat.detach()
     P, dev, C = feat.shape[0], feat.device, s.chunk
     mask = cuda_raster.decide(feat, b.point_list, b.tile_start, b.tile_count,
                               s)
@@ -1052,6 +1062,7 @@ def compare_given_mask(inp, seed, min_rows):
     s = inp.statics
     mask = cuda_raster.decide(feat, *slab[:3], s)
     ko, ka = cuda_raster.composite_fwd(feat, *slab, s, mask=mask)
+    ka = R.RenderAux(*ka)
     po, pa = R._composite_fwd_impl(feat, *slab, s, mask=mask)
     same = (ka.last_pos == pa.last_pos) & (ka.max_pos == pa.max_pos)
     err = torch.cat([(ko - po).abs(), (ka.final_T - pa.final_T).abs()[
@@ -1112,6 +1123,7 @@ def versus_f64(inp, seed, g=None, render=None):
     s = inp.statics
     mask = cuda_raster.decide(feat, *slab[:3], s)
     ko, ka = cuda_raster.composite_fwd(feat, *slab, s, mask=mask)
+    ka = R.RenderAux(*ka)
     po, _ = R._composite_fwd_impl(feat, *slab, s, mask=mask)
     qo, _ = R._composite_fwd_impl(feat.double(), *slab[:3], slab[3].double(),
                                   s, mask=mask)
@@ -1348,6 +1360,7 @@ def band_vs_plain(case, render, n_bands, seed, per_scene=False,
     rows = fs.grid_y // n_bands
     feat, extra, slab, _, g_full = bwd_inputs(full, seed)
     out_f, aux_f = cuda_raster.composite_fwd(feat, *slab, fs)
+    aux_f = R.RenderAux(*aux_f)
     grad_f = cuda_raster.composite_bwd(feat, extra, *slab, aux_f, g_full, fs)
     times = {"full": {"k1_ms": time_ms(lambda: cuda_raster.composite_fwd(
         feat, *slab, fs), TIMED_LAUNCHES), "k2_ms": time_ms(
@@ -1371,6 +1384,7 @@ def band_vs_plain(case, render, n_bands, seed, per_scene=False,
         bf, bx, bslab, _, _ = bwd_inputs(inp, seed)
         o, a = counted(lambda: cuda_raster.composite_fwd(bf, *bslab, s),
                        k1=1, decide=1)
+        a = R.RenderAux(*a)
         t0, t1 = d * rows * fs.grid_x, (d + 1) * rows * fs.grid_x
         gb = g_full[t0:t1].contiguous()
         kb = counted(lambda: cuda_raster.composite_bwd(bf, bx, *bslab, a, gb,
@@ -1669,6 +1683,7 @@ def preprocess_vs_plain(dev):
     depth and the radius) over PEAK_BYTES_PER_S.  Returns {shape: fields}."""
     import collections
     import torch
+    from f3d_gaus_torch.core import gaussians as G
     from f3d_gaus_torch.ops import binning as B
     from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.ops import rasterize as R
@@ -1681,32 +1696,32 @@ def preprocess_vs_plain(dev):
             torch_cases.preprocess_cases()):
         t = [torch.from_numpy(a).to(dev) for a in cloud]
         with profiling.record():
-            pre, feat, extra = cuda_raster.preprocess(*t, deg, cam, ks)
+            got = cuda_raster.preprocess(*t, deg, cam, ks)
             torch.cuda.synchronize()
             n = launch_counts()[4]
         require(n == 1, f"{n} preprocess launches for one call")
         with torch.no_grad():
-            ref, ref_feat, ref_extra = R._preprocess_impl(*t, deg, cam, ks)
-        gaps = {f: bit_gaps(getattr(pre, f), getattr(ref, f))
-                for f in ("depths", "means2d", "radii", "conic", "rgb")}
-        gaps["feat"] = bit_gaps(feat, ref_feat)
-        gaps["extra"] = bit_gaps(extra, ref_extra)
+            want = R._preprocess_impl(*t, deg, cam, ks)
+            valid = int(G.preprocess(*t, deg, cam, ks).valid.sum())
+        # (feat, extra, depths, radii); extra = conic | means2d
+        gaps = {f: bit_gaps(a, b) for f, a, b in zip(
+            ("feat", "extra", "depths", "radii"), got, want)}
         w, h = cam.width, cam.height
-        cap = B.suggest_pair_cap(int(B.count_pairs(ref.means2d, ref.radii,
+        cap = B.suggest_pair_cap(int(B.count_pairs(want[1][:, 3:5], want[3],
                                                    w, h)))
-        got, want = (B.bin_gaussians(p.means2d, p.radii, p.depths, w, h, cap)
-                     for p in (pre, ref))
+        got, want = (B.bin_gaussians(p[1][:, 3:5], p[3], p[2], w, h, cap)
+                     for p in (got, want))
         binning_equal = all(torch.equal(getattr(got, f), getattr(want, f))
                             for f in ("point_list", "tile_start",
                                       "tile_count", "num_pairs", "overflow"))
         res = {"P": int(t[0].shape[0]), "sh_degree": deg, "width": w,
-               "kernel_size": ks, "valid": int(ref.valid.sum()),
+               "kernel_size": ks, "valid": valid,
                "bits_differ": sum(g["differ"] for g in gaps.values()),
                "max_gap": max(g["max_gap"] for g in gaps.values()),
                "binning_equal": binning_equal}
         require(res["bits_differ"] == 0 and binning_equal,
                 {name: {k: v for k, v in gaps.items() if v["differ"]}})
-        del pre, feat, extra, ref, ref_feat, ref_extra, got, want
+        del got, want
         if i < 3:
             def kernel():
                 return cuda_raster.preprocess(*t, deg, cam, ks)

@@ -195,20 +195,17 @@ def screen_extent(cov2d: torch.Tensor):
 
 
 class Preprocessed(NamedTuple):
-    """Per-Gaussian render-ready quantities.  `preprocess` fills every
-    field but v2g (on request); the preprocess kernel (ops/cuda_raster.py:
-    preprocess) leaves None the fields marked so, which its feature table
-    holds or only a backward reads."""
+    """Per-Gaussian render-ready quantities."""
     depths: torch.Tensor        # (P,)  view-space z
     means2d: torch.Tensor       # (P, 2) pixel coords
     conic: torch.Tensor         # (P, 3) inverse 2D covariance
-    opa_coef: torch.Tensor | None  # (P,)  opacity * lowpass coefficient
+    opa_coef: torch.Tensor      # (P,)  opacity * lowpass coefficient
     rgb: torch.Tensor           # (P, 3) SH-evaluated color
-    clamped: torch.Tensor | None   # (P, 3) SH clamp mask
+    clamped: torch.Tensor       # (P, 3) SH clamp mask
     v2g: torch.Tensor | None    # (P, 10) CUDA-layout precompute (on request)
-    v2g_mb: torch.Tensor | None    # (P, 12) stable packing: M.reshape(9) ++ b
+    v2g_mb: torch.Tensor        # (P, 12) stable packing: M.reshape(9) ++ b
     radii: torch.Tensor         # (P,)  int32 screen radius (0 = culled)
-    valid: torch.Tensor | None  # (P,)  bool — survives frustum/extent culling
+    valid: torch.Tensor         # (P,)  bool — survives frustum/extent culling
 
 
 def screen_footprints(means, scales, quats, world_views, full_projs,

@@ -173,7 +173,7 @@ def tile_occupancy(means2d, radii, width: int, height: int) -> torch.Tensor:
                                                radii.detach(), width, height)
     w = (count > 0).to(torch.int32).reshape(-1)
     cells = (grid_y + 1) * (grid_x + 1)
-    views = torch.arange(radii[..., 0].numel(), device=radii.device)
+    views = torch.arange(lead.numel(), device=radii.device)
     base = (views * cells).reshape(*lead, 1)
     diff = torch.zeros(views.numel() * cells, dtype=torch.int32,
                        device=radii.device)

@@ -12,18 +12,21 @@ process per source), under build/kernels/ keyed by a hash of every file
 under csrc/ and the flags (`build_key`), and loaded with ctypes.  Importing
 this module needs no CUDA toolchain.
 
+This is the bottom of the ops layer: it imports nothing above it.
+ops/rasterize.py and ops/integrate.py choose between these wrappers and
+their plain versions, and bind their names to what the kernels' ABI fixes,
+defined here beside the launches that hard-code it: the feature table's
+width and rows, the tile's pixels, the decision mask's layout and the field
+query's plan.  The wrappers take the statics by their fields (rasterize.
+RasterStatics) and return the forward's per-pixel side outputs as a tuple
+in rasterize.RenderAux's order.
+
 `decide` launches the decision pass: one bit per (slab slot, pixel) that
 says whether the pair passes t > 0.2 and alpha >= 1/255 inside its tile's
 window.  `composite_fwd` and `composite_bwd` launch it and then the
-compositing or backward pass over the set bits; all three accept only CUDA
-tensors.  rasterize.composite picks between them and the plain PyTorch
-versions (rasterize._contrib_mask_impl, _composite_fwd_impl,
-_composite_bwd_impl).  `integrate` launches the field query; ops/
-integrate.py picks between it and its plain version (_alpha_impl).
-`preprocess` launches the per-Gaussian preprocess and writes the tables
-compositing reads; rasterize.prepare takes it for CUDA tensors that no
-gradient flows through, and its plain version (rasterize._preprocess_impl)
-for CPU tensors.
+compositing or backward pass over the set bits.  `integrate` launches the
+field query.  `preprocess` launches the per-Gaussian preprocess and writes
+the tables compositing reads.  Every wrapper accepts only CUDA tensors.
 A band of a frame (rasterize.render(tile_rows=...)) launches the same
 kernels with the statics' row_off, the global tile row of the band's
 first row; the rays keep the full frame's half width and height.
@@ -43,9 +46,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..core import gaussians as G
 from ..utils import profiling
-from . import rasterize as R
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {"decide": CSRC / "gof_decide.cu", "fwd": CSRC / "raster_fwd.cu",
@@ -63,13 +64,52 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 build_log = ""            # nvcc/ptxas output of the builds this process made
 _libs = None
 
+# The compositing kernels' ABI (csrc/gof_pair.cuh: kPix, kNFeat, kRow*):
+# the pixels of a 16 x 16 tile, and the (P, NFEAT) feature table's width
+# and column offsets (the layout note of ops/rasterize.py:_all_features).
+# The kernels read only the ids inside each tile's window, never the slab's
+# padding id P, so the table needs no sentinel row.
+PIX = 16 * 16
+NFEAT = 19
+ROW_QA = 0
+ROW_QK = 6
+ROW_B = 12
+ROW_RGB = 15
+ROW_OPA = 18
+# The decision mask: bit s % 32 of word [s // 32, pixel] holds the decision
+# of slab slot s for that pixel of its tile.  The decision pass walks the
+# slab in blocks of MASK_SLOTS slots (csrc/gof_decide.cu:kSlots); tile
+# segments start at multiples of it, so neither a block nor a word
+# straddles two tiles.
+MASK_SLOTS = 128
 
-def _all_features(v2g_mb, rgb, opa):
-    """(P, NFEAT) feature table: the monomial-coefficient columns of
-    rasterize._expand_feature_columns, one row per Gaussian.  The kernels
-    read only the ids inside each tile's window, never the slab's padding
-    id P, so the table needs no sentinel row."""
-    return torch.stack(R._expand_feature_columns(v2g_mb, rgb, opa), 1)
+
+def mask_shape(point_list):
+    """Shape of the decision mask of a slab: (slab / 32 words, PIX)."""
+    return (point_list.shape[0] // 32, PIX)
+
+
+# The field query's plan (csrc/integrate.cu): points per item, and the
+# window slices an item takes.
+POINTS_PER_ITEM = 512      # csrc/integrate.cu:kItemPoints
+SLICE_LEN = 128            # least window rows per kernel item
+MAX_SLICES = 8             # most slices per window (partial products a point)
+
+
+def key_bits(num_tiles: int) -> int:
+    """Bits per ray coordinate in the sort key: what int32 leaves beside
+    the segment (0..T), at most 15."""
+    return min(15, (31 - (num_tiles + 1).bit_length()) // 2)
+
+
+def plan_bounds(num_points: int, num_tiles: int, max_per_tile: int,
+                slice_len: int, per_item: int = POINTS_PER_ITEM):
+    """Host bounds, with no sync, on a plan's (items, partial products):
+    a window has at most min(MAX_SLICES, ceil(max_per_tile / slice_len))
+    slices."""
+    max_slices = min(MAX_SLICES, max(1, -(-max_per_tile // slice_len)))
+    return ((num_points // per_item + num_tiles + 1) * max_slices,
+            num_points * max_slices if max_slices > 1 else 0)
 
 
 def _nvcc() -> str:
@@ -169,23 +209,23 @@ def _check_slab(allf, point_list, tile_start, tile_count, T, s, mask=None,
                 bg=None):
     """The checks every wrapper shares; returns the device."""
     _check("allf", allf, torch.float32)
-    if allf.dim() != 2 or allf.shape[1] != R.NFEAT:
-        raise ValueError(f"allf must be (P, {R.NFEAT}), got "
+    if allf.dim() != 2 or allf.shape[1] != NFEAT:
+        raise ValueError(f"allf must be (P, {NFEAT}), got "
                          f"{tuple(allf.shape)}")
     _check("point_list", point_list, torch.int32)
-    if point_list.dim() != 1 or point_list.shape[0] % R.MASK_SLOTS:
+    if point_list.dim() != 1 or point_list.shape[0] % MASK_SLOTS:
         raise ValueError(f"point_list must be a slab of a multiple of "
-                         f"{R.MASK_SLOTS} slots, got "
+                         f"{MASK_SLOTS} slots, got "
                          f"{tuple(point_list.shape)}")
-    if s.lanes % R.MASK_SLOTS:
+    if s.lanes % MASK_SLOTS:
         raise ValueError(f"the slab alignment must be a multiple of "
-                         f"{R.MASK_SLOTS}, got {s.lanes}")
+                         f"{MASK_SLOTS}, got {s.lanes}")
     _check("tile_start", tile_start, torch.int32, (T,))
     _check("tile_count", tile_count, torch.int32, (T,))
     named = [("point_list", point_list), ("tile_start", tile_start),
              ("tile_count", tile_count)]
     if mask is not None:
-        _check("mask", mask, torch.int32, R.mask_shape(point_list))
+        _check("mask", mask, torch.int32, mask_shape(point_list))
         named.append(("mask", mask))
     if bg is not None:
         _check("bg", bg, torch.float32, (3,))
@@ -201,15 +241,15 @@ def _device_index(dev) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
-def decide(allf, point_list, tile_start, tile_count, s: "R.RasterStatics"):
+def decide(allf, point_list, tile_start, tile_count, s):
     """The decision pass in the kernel: the (mask_words, PIX) int32 words of
-    rasterize.mask_shape, bit k of word [w, pixel] set where slab slot
+    mask_shape, bit k of word [w, pixel] set where slab slot
     32 w + k passes t > 0.2 and alpha >= 1/255 for that pixel of its tile
     and lies inside the tile's window.  Only the words up to
     rasterize.mask_words_used are written; the rest stay uninitialised."""
     T = s.grid_x * s.grid_y
     dev = _check_slab(allf, point_list, tile_start, tile_count, T, s)
-    mask = torch.empty(R.mask_shape(point_list), dtype=torch.int32,
+    mask = torch.empty(mask_shape(point_list), dtype=torch.int32,
                        device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = load()["decide"].f3d_gof_decide(
@@ -224,22 +264,23 @@ def decide(allf, point_list, tile_start, tile_count, s: "R.RasterStatics"):
     return mask
 
 
-def composite_fwd(allf, point_list, tile_start, tile_count, bg,
-                  s: "R.RasterStatics", mask=None):
+def composite_fwd(allf, point_list, tile_start, tile_count, bg, s,
+                  mask=None):
     """Compositing forward in the kernels from the (P, NFEAT) feature table
     and the aligned slab: the decision pass (`decide`, skipped when its
     `mask` is given) and the compositing pass over its set bits.  Returns
-    (out (num_tiles, PIX, 9), RenderAux), the contract of
-    rasterize._composite_fwd_impl."""
+    (out (num_tiles, PIX, 9), (final_T, dist1, dist2, raw_distortion,
+    last_pos, max_pos)), the contract of rasterize._composite_fwd_impl with
+    its RenderAux as a plain tuple."""
     T = s.grid_x * s.grid_y
     dev = _check_slab(allf, point_list, tile_start, tile_count, T, s, mask,
                       bg)
     if mask is None:
         mask = decide(allf, point_list, tile_start, tile_count, s)
-    out = torch.empty((T, R.PIX, 9), dtype=torch.float32, device=dev)
-    fl = [torch.empty((T, R.PIX), dtype=torch.float32, device=dev)
+    out = torch.empty((T, PIX, 9), dtype=torch.float32, device=dev)
+    fl = [torch.empty((T, PIX), dtype=torch.float32, device=dev)
           for _ in range(4)]
-    it = [torch.empty((T, R.PIX), dtype=torch.int32, device=dev)
+    it = [torch.empty((T, PIX), dtype=torch.int32, device=dev)
           for _ in range(2)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = load()["fwd"].f3d_raster_fwd(
@@ -251,16 +292,15 @@ def composite_fwd(allf, point_list, tile_start, tile_count, bg,
     if err != 0:
         raise RuntimeError(f"raster_fwd kernel launch failed: CUDA error {err}")
     profiling.count("launches.fwd")
-    aux = R.RenderAux(final_T=fl[0], dist1=fl[1], dist2=fl[2],
-                      raw_distortion=fl[3], last_pos=it[0], max_pos=it[1])
-    return out, aux
+    return out, (*fl, *it)
 
 
 def composite_bwd(allf, extra, point_list, tile_start, tile_count, bg,
-                  aux: "R.RenderAux", g_out, s: "R.RasterStatics", mask=None):
+                  aux, g_out, s, mask=None):
     """Compositing backward in the kernels: the (P, NFEAT) feature table,
     the (P, 5) conic/means2d table, the aligned slab, bg, the forward's
-    RenderAux and g_out (num_tiles, PIX, 9), the cotangent of out9.  The
+    six side outputs in RenderAux's order (composite_fwd's tuple or a
+    RenderAux) and g_out (num_tiles, PIX, 9), the cotangent of out9.  The
     decision pass runs again on the forward's table and slab (skipped when
     its `mask` is given), then the backward pass over the set bits up to
     each pixel's last_pos.  Returns (d_feat (P, NFEAT), d_stats (P, 3)),
@@ -269,19 +309,20 @@ def composite_bwd(allf, extra, point_list, tile_start, tile_count, bg,
     dev = _check_slab(allf, point_list, tile_start, tile_count, T, s, mask,
                       bg)
     P = allf.shape[0]
+    final_T, dist1, _, _, last_pos, max_pos = aux
     _check("extra", extra, torch.float32, (P, 5))
-    _check("g_out", g_out, torch.float32, (T, R.PIX, 9))
-    for name in ("final_T", "dist1"):
-        _check(name, getattr(aux, name), torch.float32, (T, R.PIX))
-    for name in ("last_pos", "max_pos"):
-        _check(name, getattr(aux, name), torch.int32, (T, R.PIX))
+    _check("g_out", g_out, torch.float32, (T, PIX, 9))
+    for name, t in (("final_T", final_T), ("dist1", dist1)):
+        _check(name, t, torch.float32, (T, PIX))
+    for name, t in (("last_pos", last_pos), ("max_pos", max_pos)):
+        _check(name, t, torch.int32, (T, PIX))
     for name, t in (("extra", extra), ("g_out", g_out),
-                    ("final_T", aux.final_T), ("last_pos", aux.last_pos)):
+                    ("final_T", final_T), ("last_pos", last_pos)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, allf on {dev}")
     if mask is None:
         mask = decide(allf, point_list, tile_start, tile_count, s)
-    d_feat = torch.zeros((P, R.NFEAT), dtype=torch.float32, device=dev)
+    d_feat = torch.zeros((P, NFEAT), dtype=torch.float32, device=dev)
     d_stats = torch.zeros((P, 3), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = load()["bwd"].f3d_raster_bwd(
@@ -289,8 +330,8 @@ def composite_bwd(allf, extra, point_list, tile_start, tile_count, bg,
         point_list.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
         mask.data_ptr(), T, s.grid_x, s.row_off, s.width / 2.0,
         s.height / 2.0, s.focal_x, s.focal_y, s.max_per_tile, bg.data_ptr(),
-        g_out.data_ptr(), aux.final_T.data_ptr(), aux.dist1.data_ptr(),
-        aux.last_pos.data_ptr(), aux.max_pos.data_ptr(), d_feat.data_ptr(),
+        g_out.data_ptr(), final_T.data_ptr(), dist1.data_ptr(),
+        last_pos.data_ptr(), max_pos.data_ptr(), d_feat.data_ptr(),
         d_stats.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"raster_bwd kernel launch failed: CUDA error {err}")
@@ -311,12 +352,11 @@ def integrate(v2g_mb, opa, point_list, tile_start, tile_count, u, v, depth,
 
     One launch packs the rows (with the rejection's per-row threshold)
     and the points' sort keys (integrate_prep), torch.sort orders the
-    points by key, and one more launches the plan kernel (blocks of 512
-    points, windows cut into slices of at least `slice_len` rows, default
-    integrate.SLICE_LEN, and at most integrate.MAX_SLICES slices;
+    points by key, and one more launches the plan kernel (blocks of
+    POINTS_PER_ITEM points, windows cut into slices of at least `slice_len`
+    rows, default SLICE_LEN, and at most MAX_SLICES slices;
     integrate._integrate_items is its plain version), the field and its
     second pass for the split windows.  No host sync."""
-    from . import integrate as TI
     P = v2g_mb.shape[0]
     _check("v2g_mb", v2g_mb, torch.float32, (P, 12))
     _check("opa", opa, torch.float32, (P,))
@@ -334,7 +374,7 @@ def integrate(v2g_mb, opa, point_list, tile_start, tile_count, u, v, depth,
     _check("inside", inside, torch.bool, (Q,))
     if out is not None:
         _check("out", out, torch.float32, (Q,))
-    slice_len = TI.SLICE_LEN if slice_len is None else int(slice_len)
+    slice_len = SLICE_LEN if slice_len is None else int(slice_len)
     if slice_len <= 0:
         raise ValueError(f"slice_len must be positive, got {slice_len}")
     dev = v2g_mb.device
@@ -359,7 +399,6 @@ def integrate_prep(v2g_mb, opa, u, v, tile, inside, num_tiles: int):
     csrc/integrate.cu's prep kernel (the plain versions integrate.
     _pack_rows and _point_keys): ((P + 1, 16) f32, (Q,) int32).  On
     checked tensors."""
-    from . import integrate as TI
     dev, P, Q = v2g_mb.device, v2g_mb.shape[0], u.shape[0]
     rows = torch.empty((P + 1, 16), dtype=torch.float32, device=dev)
     keys = torch.empty(Q, dtype=torch.int32, device=dev)
@@ -367,7 +406,7 @@ def integrate_prep(v2g_mb, opa, u, v, tile, inside, num_tiles: int):
     err = load()["integrate"].f3d_integrate_prep(
         _device_index(dev), v2g_mb.data_ptr(), opa.data_ptr(), P,
         u.data_ptr(), v.data_ptr(), tile.data_ptr(), inside.data_ptr(), Q,
-        num_tiles, TI.key_bits(num_tiles), rows.data_ptr(), keys.data_ptr(),
+        num_tiles, key_bits(num_tiles), rows.data_ptr(), keys.data_ptr(),
         stream)
     if err != 0:
         raise RuntimeError(
@@ -384,9 +423,8 @@ def _integrate_launch(rows, keys, perm, point_list, tile_start, tile_count,
     by the wrapper, not here.  `plan`, when given, a (3 (T + 2) + 1,)
     int32 tensor, receives the plan's segment, item and partial starts
     (and the kernel's item counter)."""
-    from . import integrate as TI
     dev, Q, T = rows.device, u.shape[0], tile_start.shape[0]
-    max_items, max_parts = TI.plan_bounds(Q, T, max_per_tile, slice_len)
+    max_items, max_parts = plan_bounds(Q, T, max_per_tile, slice_len)
     part = torch.empty(max(max_parts, 1), dtype=torch.float32, device=dev)
     if plan is None:
         plan = torch.empty(3 * (T + 2) + 1, dtype=torch.int32, device=dev)
@@ -397,8 +435,8 @@ def _integrate_launch(rows, keys, perm, point_list, tile_start, tile_count,
     err = load()["integrate"].f3d_integrate(
         _device_index(dev), rows.data_ptr(), point_list.data_ptr(),
         tile_start.data_ptr(), tile_count.data_ptr(), T, rows.shape[0] - 1,
-        max_per_tile, slice_len, TI.MAX_SLICES, keys.data_ptr(),
-        perm.data_ptr(), 2 * TI.key_bits(T), plan.data_ptr(), u.data_ptr(),
+        max_per_tile, slice_len, MAX_SLICES, keys.data_ptr(),
+        perm.data_ptr(), 2 * key_bits(T), plan.data_ptr(), u.data_ptr(),
         v.data_ptr(),
         depth.data_ptr(), part.data_ptr(), out.data_ptr(), int(running_min),
         Q, max_items, stream)
@@ -432,23 +470,15 @@ def camera_scalars(camera, kernel_size: float = 0.0,
 def preprocess(means, scales, quats, opacities, shs, sh_degree: int, camera,
                kernel_size: float = 0.0, scale_modifier: float = 1.0):
     """The preprocess of a render that no gradient flows through, in one
-    launch of csrc/preprocess.cu: (pre, feat, extra), the (P, NFEAT)
-    feature table of _all_features (its opacity column the value of
-    prepare's opa), the (P, 5) conic | means2d table and a core.gaussians.
-    Preprocessed of what a render reads besides them, bit for bit the
-    composed route's: depths, radii (0 where not valid), and means2d and
-    conic (views of `extra`) and rgb (a view of `feat`); opa_coef, clamped,
-    v2g, v2g_mb and valid are None (the feature table holds v2g_mb and the
-    opacity; the clamp mask serves only a backward).  CPU tensors take the
-    plain version, rasterize._preprocess_impl, which fills every field;
-    otherwise all five must be CUDA tensors, float32 and contiguous: means
-    and scales (P, 3), quats (P, 4), opacities P values, shs (P, K, 3) with
-    K >= (sh_degree + 1)^2, sh_degree 0-3.  No host sync: the camera goes
-    by value in the launch's arguments."""
-    if not any(t.is_cuda for t in (means, scales, quats, opacities, shs)):
-        return R._preprocess_impl(means, scales, quats, opacities, shs,
-                                  sh_degree, camera, kernel_size,
-                                  scale_modifier)
+    launch of csrc/preprocess.cu: (feat, extra, depths, radii), the
+    (P, NFEAT) feature table (its opacity column the opacity times its
+    low-pass coefficient), the (P, 5) conic | means2d table, the view-space
+    depths and the int32 radii (0 where not valid), bit for bit what the
+    plain version rasterize._preprocess_impl gives.  All five inputs must
+    be CUDA tensors, float32 and contiguous: means and scales (P, 3), quats
+    (P, 4), opacities P values, shs (P, K, 3) with K >= (sh_degree + 1)^2,
+    sh_degree 0-3.  No host sync: the camera goes by value in the launch's
+    arguments."""
     P = means.shape[0]
     if not 0 <= sh_degree <= 3:
         raise ValueError(f"sh_degree must be 0-3, got {sh_degree}")
@@ -469,7 +499,7 @@ def preprocess(means, scales, quats, opacities, shs, sh_degree: int, camera,
                     ("opacities", opacities), ("shs", shs)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, means on {dev}")
-    feat = torch.empty((P, R.NFEAT), dtype=torch.float32, device=dev)
+    feat = torch.empty((P, NFEAT), dtype=torch.float32, device=dev)
     extra = torch.empty((P, 5), dtype=torch.float32, device=dev)
     depths = torch.empty(P, dtype=torch.float32, device=dev)
     radii = torch.empty(P, dtype=torch.int32, device=dev)
@@ -484,8 +514,4 @@ def preprocess(means, scales, quats, opacities, shs, sh_degree: int, camera,
     if err != 0:
         raise RuntimeError(f"preprocess kernel launch failed: CUDA error {err}")
     profiling.count("launches.preprocess")
-    pre = G.Preprocessed(
-        depths=depths, means2d=extra[:, 3:5], conic=extra[:, :3],
-        opa_coef=None, rgb=feat[:, R.ROW_RGB:R.ROW_RGB + 3], clamped=None,
-        v2g=None, v2g_mb=None, radii=radii, valid=None)
-    return pre, feat, extra
+    return feat, extra, depths, radii

@@ -40,15 +40,18 @@ from ..core import gaussians as G
 from ..core.cameras import Camera
 from ..core.device import resolve_device
 from . import binning as B
+from . import cuda_raster
 
 ALPHA_EPS = 1.0 / 255.0
 BLOCK = B.BLOCK
 # the rejection's margin for the rounding of g = t_c a + b and of a x b,
 # per unit |b|^2 (argued in csrc/integrate.cu's header)
 REJECT_KAPPA = 4e-6
-POINTS_PER_ITEM = 512      # csrc/integrate.cu:kItemPoints
-SLICE_LEN = 128            # least window rows per kernel item
-MAX_SLICES = 8             # most slices per window (partial products a point)
+# the kernel's plan (cuda_raster): points per item, the least window rows
+# per item and the most slices per window (partial products a point)
+POINTS_PER_ITEM = cuda_raster.POINTS_PER_ITEM
+SLICE_LEN = cuda_raster.SLICE_LEN
+MAX_SLICES = cuda_raster.MAX_SLICES
 KEY_RANGE = 2.0            # ray coordinates the sort key resolves
 
 overflow_views = 0        # views with a truncated binning since the last reset
@@ -190,10 +193,7 @@ class ItemPlan(NamedTuple):
     part_start: torch.Tensor  # (T + 2,) int32 first partial of segment s
 
 
-def key_bits(num_tiles: int) -> int:
-    """Bits per ray coordinate in the sort key: what int32 leaves beside
-    the segment (0..T), at most 15."""
-    return min(15, (31 - (num_tiles + 1).bit_length()) // 2)
+key_bits = cuda_raster.key_bits
 
 
 def _spread_bits(x):
@@ -266,14 +266,7 @@ def slice_rows(window, slice_len: int):
     return max(slice_len, least)
 
 
-def plan_bounds(num_points: int, num_tiles: int, max_per_tile: int,
-                slice_len: int, per_item: int = POINTS_PER_ITEM):
-    """Host bounds, with no sync, on a plan's (items, partial products):
-    a window has at most min(MAX_SLICES, ceil(max_per_tile / slice_len))
-    slices."""
-    max_slices = min(MAX_SLICES, max(1, -(-max_per_tile // slice_len)))
-    return ((num_points // per_item + num_tiles + 1) * max_slices,
-            num_points * max_slices if max_slices > 1 else 0)
+plan_bounds = cuda_raster.plan_bounds
 
 
 def _point_alpha_product(rows, u, v, ray_depth):
@@ -318,7 +311,6 @@ def _view_alpha(pre, bng, q: QueryRays, s: IntegrateStatics, kernel: bool,
     """One view's field: alpha (Q,), or `out` updated in place to
     min(out, alpha) (the view sweep's running minimum)."""
     if kernel:
-        from . import cuda_raster
         return cuda_raster.integrate(pre.v2g_mb, pre.opa_coef, bng.point_list,
                                      bng.tile_start, bng.tile_count, q.u, q.v,
                                      q.depth, q.tile, q.inside,

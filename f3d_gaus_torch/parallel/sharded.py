@@ -29,8 +29,6 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..core import gaussians as G
-from ..ops import cuda_raster
 from ..ops import rasterize as R
 
 
@@ -112,15 +110,13 @@ def band_render(rank: int, world: int, means3d, scales, quats, opacities,
         sl = slice(rank * P // world, (rank + 1) * P // world)
         means3d, scales, quats, opacities, shs = (
             a[sl] for a in (means3d, scales, quats, opacities, shs))
-    pre = G.preprocess(means3d, scales, quats, opacities, shs, sh_degree,
-                       camera, kernel_size)
-    opa_flat = opacities.reshape(-1)
-    opa = opa_flat + (pre.opa_coef - opa_flat).detach()
-    feat = cuda_raster._all_features(pre.v2g_mb, pre.rgb, opa)
+    feat, extra, depths, radii = R._preprocess_impl(
+        means3d, scales, quats, opacities, shs, sh_degree, camera,
+        kernel_size)
     # [conic | means2d | depth | radius]: the columns binning and the
     # densification statistics read, gathered without gradient
-    extra = torch.cat([pre.conic, pre.means2d, pre.depths[:, None],
-                       pre.radii[:, None].float()], 1).detach()
+    extra = torch.cat([extra, depths[:, None], radii[:, None].float()],
+                      1).detach()
     if gather is not None:
         feat, extra = gather(feat, extra)
     radii = extra[:, 6].to(torch.int32)

@@ -42,7 +42,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core import gaussians as G
 from ..core.cameras import Camera
 from ..core.device import resolve_device
 from ..core.quaternions import quat_to_rotmat
@@ -209,42 +208,25 @@ def render_scene(scene: SceneParams, camera, cfg: PerSceneConfig, bg,
         chunk=cfg.chunk, means2d_stats=means2d_stats, mask=scene.alive)
 
 
-PLAN_CHUNK = 1 << 22      # (camera, Gaussian) footprints per planning step
-
-
 @torch.no_grad()
 def needed_caps(scene: SceneParams, cameras, cfg: PerSceneConfig) -> dict:
     """What the scene's alive rows need at `cameras`, at most over them:
     {'pairs': the (Gaussian, tile) pair count, 'tile': the fullest tile's
-    Gaussians}, both exact: the footprints preprocess gives
-    (gaussians.screen_footprints, many cameras of one size and field of
-    view at once, PLAN_CHUNK footprints at a time), their pair counts
-    (binning.tile_rects) and tile occupancy (binning.tile_occupancy); no
-    binning.  Dead rows are culled as the render culls them.  One host
-    read for all the cameras."""
+    Gaussians}, both exact: binning.footprint_need of the alive rows for
+    each group of cameras that share a size and field of view.  Dead rows,
+    which the render culls, add no pair.  No binning; one host read a
+    group."""
     g = activated(scene)
+    alive = [g[k][scene.alive][None] for k in ("xyz", "scaling", "rotation")]
     groups: dict = {}
     for cam in cameras:
         groups.setdefault((cam.width, cam.height, cam.tan_fovx,
                            cam.tan_fovy), []).append(cam)
-    step = max(1, PLAN_CHUNK // max(scene.xyz.shape[0], 1))
-    pairs, tiles = [], []
-    for cams in groups.values():
-        for i in range(0, len(cams), step):
-            sub = cams[i:i + step]
-            m2d, radii = G.screen_footprints(
-                g["xyz"], g["scaling"], g["rotation"],
-                np.stack([c.world_view for c in sub]),
-                np.stack([c.full_proj for c in sub]), sub[0], cfg.kernel_size)
-            radii = torch.where(scene.alive, radii, 0)
-            *_, count = binning.tile_rects(m2d, radii, sub[0].width,
-                                           sub[0].height)
-            pairs.append(count.to(torch.int64).sum(-1).max())
-            tiles.append(binning.tile_occupancy(m2d, radii, sub[0].width,
-                                                sub[0].height).max().long())
-    n_pairs, n_tile = torch.stack([torch.stack(pairs).max(),
-                                   torch.stack(tiles).max()]).tolist()
-    return {"pairs": n_pairs, "tile": n_tile}
+    needs = [binning.footprint_need(
+        *alive, np.stack([c.world_view for c in cams]),
+        np.stack([c.full_proj for c in cams]), cams[0], cfg.kernel_size)
+        for cams in groups.values()]
+    return {k: max(n[k] for n in needs) for k in ("pairs", "tile")}
 
 
 def plan_caps(need: dict, cfg: PerSceneConfig) -> dict:

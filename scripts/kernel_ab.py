@@ -77,11 +77,14 @@ def compare_shape(name, inp, old, iters, seed):
     import torch
     import chip_smoke as S
     from f3d_gaus_torch.ops import cuda_raster as new
+    from f3d_gaus_torch.ops import rasterize as R
 
     s = inp.statics
     feat, extra, slab, _, g = S.bwd_inputs(inp, seed)
+    # a checkout's kernels return the side outputs as a tuple or a RenderAux
     new_out, new_aux = new.composite_fwd(feat, *slab, s)
     old_out, old_aux = old.composite_fwd(feat, *slab, s)
+    new_aux, old_aux = R.RenderAux(*new_aux), R.RenderAux(*old_aux)
     res = {"phase": "kernel_ab", "shape": name, "P": int(feat.shape[0]),
            "max_per_tile": s.max_per_tile,
            "fwd_bitwise_equal": bool(

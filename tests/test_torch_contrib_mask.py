@@ -22,7 +22,6 @@ import torch
 from f3d_gaus_tpu.core import gaussians as JG
 from f3d_gaus_tpu.ops import binning as JB
 from f3d_gaus_tpu.ops import rasterize as JR
-from f3d_gaus_torch.ops import cuda_raster
 from f3d_gaus_torch.ops import rasterize as TR
 import torch_cases  # tests/ is on sys.path under pytest (rootdir-less dir)
 
@@ -38,8 +37,7 @@ def _prepared(case):
     cam, cloud, bg, kw = CASES[case]
     inp = TR.prepare(*[torch.from_numpy(a) for a in cloud], cam,
                      torch.from_numpy(bg), device="cpu", **kw)
-    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb,
-                                     inp.opa).detach()
+    feat = inp.feat.detach()
     b = inp.binning
     return inp, feat, (b.point_list, b.tile_start, b.tile_count)
 
@@ -126,7 +124,7 @@ def test_composite_fwd_with_mask_equals_without(case):
 def test_composite_bwd_with_mask_equals_without(case):
     inp, feat, slab = _prepared(case)
     s = inp.statics
-    extra = torch.cat([inp.pre.conic, inp.pre.means2d], 1).detach()
+    extra = inp.extra.detach()
     mask = TR._contrib_mask_impl(feat, *slab, s)
     _, aux = TR._composite_fwd_impl(feat, *slab, inp.bg, s)
     g = np.random.default_rng(0).normal(size=(s.grid_x * s.grid_y, TR.PIX, 9))

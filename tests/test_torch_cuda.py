@@ -85,7 +85,7 @@ def test_decide_kernel_matches_plain_mask(cuda, case):
                                     if c[0] == case)
     inp = TR.prepare(*[torch.from_numpy(a).to(cuda) for a in cloud], cam,
                      torch.from_numpy(bg).to(cuda), **kw)
-    feat = TR._tables(inp)[0].detach()
+    feat = inp.feat.detach()
     b, s = inp.binning, inp.statics
     slab = (b.point_list, b.tile_start, b.tile_count)
     k, n = launched(lambda: cuda_raster.decide(feat, *slab, s))
@@ -129,6 +129,7 @@ def test_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):
         cuda_raster.decide(allf, pl[:200], ts, ts, s)
     out, aux = cuda_raster.composite_fwd(allf, pl, ts, ts, bg, s)
+    aux = TR.RenderAux(*aux)
     torch.cuda.synchronize()
     assert (aux.final_T == 1).all() and (aux.last_pos == -1).all()
 
@@ -142,13 +143,14 @@ def _bwd_inputs(case, device, zero_qk=False):
                                     if c[0] == case)
     inp = TR.prepare(*[torch.from_numpy(a).to(device) for a in cloud], cam,
                      torch.from_numpy(bg).to(device), **kw)
-    feat = TR._tables(inp)[0].detach()
+    feat = inp.feat.detach()
     if zero_qk:
         feat = torch_cases.zero_qk(feat)
-    extra = TR._tables(inp)[1].detach()
+    extra = inp.extra.detach()
     b = inp.binning
     slab = (b.point_list, b.tile_start, b.tile_count, inp.bg)
     out, aux = cuda_raster.composite_fwd(feat, *slab, inp.statics)
+    aux = TR.RenderAux(*aux)
     g = np.random.default_rng(0).normal(size=tuple(out.shape)).astype(np.float32)
     g[..., 7] = 0.0
     return feat, extra, slab, aux, torch.from_numpy(g).to(device), inp.statics
@@ -217,7 +219,7 @@ def test_band_kernels_match_plain_band(cuda, case, tile_rows):
     s = inp.statics
     assert s.row_off == tile_rows[0] > 0 and s.grid_y == tile_rows[1]
     assert s.height == cam.height
-    feat, extra = (t.detach() for t in TR._tables(inp))
+    feat, extra = inp.feat.detach(), inp.extra.detach()
     b = inp.binning
     slab = (b.point_list, b.tile_start, b.tile_count)
     k = cuda_raster.decide(feat, *slab, s)
@@ -225,6 +227,7 @@ def test_band_kernels_match_plain_band(cuda, case, tile_rows):
     used = TR.mask_words_used(b.tile_start, b.tile_count, s)
     assert torch.equal(k[:used], p[:used])
     ko, ka = cuda_raster.composite_fwd(feat, *slab, inp.bg, s)
+    ka = TR.RenderAux(*ka)
     po, pa = TR._composite_fwd_impl(feat, *slab, inp.bg, s)
     torch.testing.assert_close(ko, po, atol=1e-4, rtol=0)
     torch.testing.assert_close(ka.final_T, pa.final_T, atol=1e-4, rtol=0)
@@ -427,14 +430,14 @@ def test_kernels_on_an_odd_frame_with_dead_rows(cuda):
     cam, cloud, mask, bg, kw = _odd_frame_case(cuda)
     inp = TR.prepare(*cloud, cam, bg, mask=mask, **kw)
     assert (inp.statics.grid_x, inp.statics.grid_y) == (3, 2)
-    assert (inp.pre.radii[~mask] == 0).all() and (inp.pre.radii > 0).sum() > 40
+    assert (inp.radii[~mask] == 0).all() and (inp.radii > 0).sum() > 40
     ko, ka = TR.composite(inp)
     po, pa = TR.composite(inp, "torch")
     torch.testing.assert_close(ko, po, atol=1e-4, rtol=0)
     torch.testing.assert_close(ka.final_T, pa.final_T, atol=1e-4, rtol=0)
     assert torch.equal(ka.last_pos, pa.last_pos)
     assert torch.equal(ka.max_pos, pa.max_pos)
-    feat, extra = (t.detach() for t in TR._tables(inp))
+    feat, extra = inp.feat.detach(), inp.extra.detach()
     b = inp.binning
     slab = (b.point_list, b.tile_start, b.tile_count, inp.bg)
     g = np.random.default_rng(4).normal(size=tuple(ko.shape)).astype(np.float32)
@@ -576,7 +579,6 @@ def test_planned_request_equals_doubled_caps(cuda):
 
 PREPROCESS_CASES = ("orbit_589824", "aggregation_65536", "gslrm_1048576",
                     "edges_sh3", "edges_sh2_k0")
-PRE_FIELDS = ("depths", "means2d", "radii", "conic", "rgb")
 
 
 @functools.lru_cache(maxsize=1)
@@ -602,33 +604,30 @@ def _bit_gaps(got, want):
 @pytest.mark.parametrize("case", PREPROCESS_CASES)
 def test_preprocess_kernel_matches_composed(cuda, case):
     """The preprocess kernel (cuda_raster.preprocess) against the composed
-    route (rasterize._preprocess_impl) on the card, bit for bit: every
-    Preprocessed field it writes, the feature table column by column (which
-    holds v2g_mb and the opacity times its coefficient) and the conic |
-    means2d table; so the binning of the two is equal too."""
+    route (rasterize._preprocess_impl) on the card, bit for bit: the
+    feature table column by column (which holds v2g_mb, the SH colour and
+    the opacity times its coefficient), the conic | means2d table, the
+    depths and the radii; so the binning of the two is equal too."""
     cam, cloud, deg, ks = _preprocess_cases()[case]
     t = [torch.from_numpy(a).to(cuda) for a in cloud]
-    (pre, feat, extra), n = launched(
-        lambda: cuda_raster.preprocess(*t, deg, cam, ks))
+    got, n = launched(lambda: cuda_raster.preprocess(*t, deg, cam, ks))
     assert n["preprocess"] == 1
-    ref, ref_feat, ref_extra = TR._preprocess_impl(*t, deg, cam, ks)
-    gaps = {f: _bit_gaps(getattr(pre, f), getattr(ref, f))
-            for f in PRE_FIELDS}
-    gaps.update({f"feat[{j}]": _bit_gaps(feat[:, j], ref_feat[:, j])
-                 for j in range(TR.NFEAT)})
-    gaps["extra"] = _bit_gaps(extra, ref_extra)
+    want = TR._preprocess_impl(*t, deg, cam, ks)
+    feat, extra, depths, radii = got
+    gaps = {f"feat[{j}]": _bit_gaps(feat[:, j], want[0][:, j])
+            for j in range(TR.NFEAT)}
+    gaps.update({f: _bit_gaps(a, b) for f, a, b in zip(
+        ("extra", "depths", "radii"), got[1:], want[1:])})
     assert not any(gaps.values()), {k: v for k, v in gaps.items() if v}
-    assert all(getattr(pre, f) is None for f in ("opa_coef", "clamped", "v2g",
-                                                 "v2g_mb", "valid"))
     assert feat.is_contiguous() and extra.is_contiguous()
-    n_valid = int(ref.valid.sum())
-    assert 0 < n_valid and (n_valid < len(ref.valid)) == case.startswith(
-        "edges")
+    valid = TG.preprocess(*t, deg, cam, ks).valid
+    n_valid = int(valid.sum())
+    assert 0 < n_valid and (n_valid < len(valid)) == case.startswith("edges")
     w, h = cam.width, cam.height
-    cap = TB.suggest_pair_cap(int(TB.count_pairs(ref.means2d, ref.radii, w,
+    cap = TB.suggest_pair_cap(int(TB.count_pairs(want[1][:, 3:5], want[3], w,
                                                  h)))
-    got, want = (TB.bin_gaussians(p.means2d, p.radii, p.depths, w, h, cap)
-                 for p in (pre, ref))
+    got, want = (TB.bin_gaussians(p[1][:, 3:5], p[3], p[2], w, h, cap)
+                 for p in (got, want))
     for f in ("point_list", "tile_start", "tile_count", "num_pairs",
               "overflow"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
@@ -648,7 +647,7 @@ def test_preprocess_route_follows_grad_mode(cuda):
     leaves = [a.clone().requires_grad_() for a in t]
     g, n = launched(lambda: TR.render(*leaves, cam, bg, **kw))
     assert n["preprocess"] == 0 and n["fwd"] == 1
-    rgb = TR.prepare(*t, cam, bg, **kw).rgb
+    rgb = TR.prepare(*t, cam, bg, **kw).feat[:, TR.ROW_RGB:TR.ROW_RGB + 3]
     c, n = launched(lambda: TR.render(*t, cam, bg, colors_precomp=rgb, **kw))
     assert n["preprocess"] == 0
     for other in (g, c):

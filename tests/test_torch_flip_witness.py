@@ -36,10 +36,12 @@ def _inputs(opa=None):
     cam, cloud, bg, kw = CASES["cloud96_mpt128"]
     inp = TR.prepare(*[torch.from_numpy(a) for a in cloud], cam,
                      torch.from_numpy(bg), device="cpu", **kw)
+    feat = inp.feat.detach()
     if opa is not None:
-        inp = inp._replace(opa=opa)
-    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
-    extra = torch.cat([inp.pre.conic, inp.pre.means2d], 1).detach()
+        feat = feat.clone()
+        feat[:, TR.ROW_OPA] = opa
+        inp = inp._replace(feat=feat)
+    extra = inp.extra.detach()
     b = inp.binning
     slab = (b.point_list, b.tile_start, b.tile_count, inp.bg)
     out, aux = TR._composite_fwd_impl(feat, *slab, inp.statics)
@@ -80,7 +82,7 @@ def _pair_at_threshold():
             & (pos < aux.last_pos[..., None])).nonzero()
     ti, pi, ki = pair[0].tolist()
     gid = int(gids[ti, ki])
-    opa = inp.opa.clone()
+    opa = inp.feat[:, TR.ROW_OPA].clone()
     opa[gid] = float(np.float32(TR.ALPHA_EPS)) / float(ev["G"][ti, pi, ki])
     inp2, args2 = _inputs(opa)
     return inp2, args2, (ti, pi, ki), gid, pair
@@ -241,7 +243,7 @@ def test_alpha_error_bound_covers_f32_rounding(thin):
                      torch.tensor([0.1, 0.2, 0.3]), device="cpu",
                      pair_cap=1 << 14, max_per_tile=256, chunk=32)
     s, b = inp.statics, inp.binning
-    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
+    feat = inp.feat.detach()
     slab = (b.point_list, b.tile_start, b.tile_count)
     mask = TR._contrib_mask_impl(feat, *slab, s)
     po, pa = TR._composite_fwd_impl(feat, *slab, inp.bg, s, mask=mask)

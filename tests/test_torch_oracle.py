@@ -146,13 +146,15 @@ def test_backward_matches_oracle():
 
     inp = TR.prepare(*_tensors(cloud), cam, torch.from_numpy(bg), chunk=32,
                      **CAPS)
-    leaves = [inp.pre.v2g_mb.detach().requires_grad_(),
-              inp.rgb.detach().requires_grad_(),
-              inp.opa.detach().requires_grad_(),
+    # the composed route's intermediates, as leaves: (M, b), rgb, opacity
+    leaves = [pre_t.v2g_mb.detach().requires_grad_(),
+              pre_t.rgb.detach().requires_grad_(),
+              pre_t.opa_coef.detach().requires_grad_(),
               inp.stats.detach().requires_grad_()]
-    inp = inp._replace(pre=inp.pre._replace(v2g_mb=leaves[0]), rgb=leaves[1],
-                       opa=leaves[2], stats=leaves[3])
-    out, _ = TR.composite(inp)
+    feat = TR._all_features(*leaves[:3])
+    assert torch.equal(feat, inp.feat)
+    out, _ = TR.composite_from_features(feat, inp.extra, inp.binning,
+                                        inp.statics, inp.bg, stats=leaves[3])
     img = TR._tiles_to_image(out, inp.statics)
     dmb, drgb, dopa, dm2d = [g.numpy() for g in torch.autograd.grad(
         torch.sum(img * torch.from_numpy(dL)), leaves)]

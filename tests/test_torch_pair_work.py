@@ -19,7 +19,6 @@ import numpy as np
 import pytest
 import torch
 
-from f3d_gaus_torch.ops import cuda_raster
 from f3d_gaus_torch.ops import rasterize as TR
 import torch_cases  # tests/ is on sys.path under pytest (rootdir-less dir)
 
@@ -40,8 +39,7 @@ def _prepared(case):
     cam, cloud, bg, kw = CASES[case]
     inp = TR.prepare(*[torch.from_numpy(a) for a in cloud], cam,
                      torch.from_numpy(bg), device="cpu", **kw)
-    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb,
-                                     inp.opa).detach()
+    feat = inp.feat.detach()
     return inp, feat
 
 

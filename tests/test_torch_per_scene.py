@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from f3d_gaus_tpu.train import per_scene as JP
+from f3d_gaus_torch.core import gaussians as TG
 from f3d_gaus_torch.ops import rasterize as TR
 from f3d_gaus_torch.train import checkpoint as Tckpt
 from f3d_gaus_torch.train import losses as TL
@@ -336,14 +337,21 @@ def test_fit_scene_counts_overflowed_steps():
     assert all(np.isfinite(hist["step_loss"]))
 
 
-def test_needed_caps_counts_exactly():
+@pytest.mark.parametrize("sizes", ["one_size", "two_sizes"])
+def test_needed_caps_counts_exactly(sizes, monkeypatch):
     """needed_caps, with no binning, is the binning's own count: the pairs
     and the fullest tile of the alive rows, at most over the cameras; the
     per-tile occupancy equals bin_gaussians' tile_count tile by tile, and
-    the footprints of all cameras at once equal preprocess's at each."""
+    the footprints of all cameras of a size at once equal preprocess's at
+    each.  With two sizes (one camera 48 x 32) it plans each size apart:
+    one binning.footprint_need call a size.  A scene with no alive row
+    needs nothing."""
     from f3d_gaus_torch.ops import binning as TB
     rng = np.random.default_rng(4)
     cams, gt, _ = _gt_views(rng, n_views=3)
+    if sizes == "two_sizes":
+        cams[1] = torch_cases.orbit_views(3).camera(1, 48, 32, torch_cases.TAN,
+                                                    torch_cases.TAN)
     scene = TP.init_scene(gt[0], np.full((40, 3), 0.5), small_cfg(TP),
                           device="cpu")
     scene = scene._replace(alive=scene.alive & (torch.arange(
@@ -354,7 +362,7 @@ def test_needed_caps_counts_exactly():
         out = TP.render_scene(scene, cam, cfg._replace(pair_cap=1 << 14),
                               torch.zeros(3), 1)
         bng = out["binning"]
-        pre = TP.G.preprocess(*[TP.activated(scene)[k] for k in (
+        pre = TG.preprocess(*[TP.activated(scene)[k] for k in (
             "xyz", "scaling", "rotation", "opacity", "shs")], 1, cam)
         occ = TB.tile_occupancy(pre.means2d, torch.where(
             scene.alive, pre.radii, 0), cam.width, cam.height)
@@ -362,18 +370,26 @@ def test_needed_caps_counts_exactly():
         pairs.append(int(bng.num_pairs))
         tile.append(int(bng.tile_count.max()))
     g = TP.activated(scene)
-    m2d, radii = TP.G.screen_footprints(
+    same = [c for c in cams if c.width == cams[0].width]
+    m2d, radii = TG.screen_footprints(
         g["xyz"], g["scaling"], g["rotation"],
-        np.stack([c.world_view for c in cams]),
-        np.stack([c.full_proj for c in cams]), cams[0])
-    for v, cam in enumerate(cams):       # bit for bit preprocess's
-        pre = TP.G.preprocess(*[g[k] for k in ("xyz", "scaling", "rotation",
-                                               "opacity", "shs")], 1, cam)
+        np.stack([c.world_view for c in same]),
+        np.stack([c.full_proj for c in same]), cams[0])
+    for v, cam in enumerate(same):       # bit for bit preprocess's
+        pre = TG.preprocess(*[g[k] for k in ("xyz", "scaling", "rotation",
+                                             "opacity", "shs")], 1, cam)
         assert torch.equal(m2d[v], pre.means2d)
         assert torch.equal(radii[v], pre.radii)
+    calls = []
+    footprint_need = TB.footprint_need
+    monkeypatch.setattr(TB, "footprint_need", lambda *a, **k: (
+        calls.append(a[5].width), footprint_need(*a, **k))[1])
     need = TP.needed_caps(scene, cams, cfg)
+    assert sorted(calls) == ([32] if sizes == "one_size" else [32, 48])
     assert need == {"pairs": max(pairs), "tile": max(tile)}
     assert need["tile"] > 16
+    none_alive = scene._replace(alive=torch.zeros_like(scene.alive))
+    assert TP.needed_caps(none_alive, cams, cfg) == {"pairs": 0, "tile": 0}
     assert TP.CAP_HEADROOM == 2.0 and TP.plan_caps(need, cfg) == {
         "pair_cap": max(cfg.pair_cap, TB.suggest_pair_cap(2 * max(pairs))),
         "max_per_tile": max(cfg.max_per_tile,

@@ -2,14 +2,14 @@
 
 prepare takes the preprocess kernel (cuda_raster.preprocess, csrc/
 preprocess.cu) only for CUDA tensors that autograd records nothing of, with
-no colors_precomp; everything else composes core.gaussians.preprocess, as
-before the kernel.  Here: the routing predicate, prepare's values on each
-composed route (CPU tensors, inputs that require grad, given colours) and
-that none counts a launch, the kernel's plain version and the tables
-composite takes from it (and refuses once a field they hold was replaced),
-the f32 camera scalars the kernel is given and the order it sums |d|^2 in.
-The kernel itself is held against the composed route on the card in
-tests/test_torch_cuda.py."""
+no colors_precomp; everything else composes the same tables in
+rasterize._preprocess_impl.  Here: the routing predicate, prepare's tables
+on each composed route (CPU tensors, inputs that require grad, given
+colours) and that none counts a launch, the kernel's plain version at each
+SH degree and the tables composite takes as they are, the kernel wrapper's
+refusal of CPU tensors, the f32 camera scalars the kernel is given and the
+order it sums |d|^2 in.  The kernel itself is held against the composed
+route on the card in tests/test_torch_cuda.py."""
 import numpy as np
 import pytest
 import torch
@@ -48,12 +48,24 @@ def test_kernel_route_predicate():
         assert not TR._kernel_preprocess(CUDA, leaf, t[0])
 
 
+def _composed_tables(t, colors, cam, sh_degree=1):
+    """The tables of the composed route, from core.gaussians.preprocess and
+    rasterize._all_features: (feat, extra, radii, the Preprocessed)."""
+    ref = G.preprocess(*t, sh_degree, cam)
+    opa_flat = t[3].reshape(-1)
+    feat = TR._all_features(ref.v2g_mb, ref.rgb if colors is None else colors,
+                            opa_flat + (ref.opa_coef - opa_flat))
+    return feat, torch.cat([ref.conic, ref.means2d], 1), ref.radii, ref
+
+
 @pytest.mark.parametrize("route", ["cpu", "requires_grad", "colors_precomp"])
 def test_prepare_composes_with_todays_values(route):
-    """On each route that composes, prepare hands composite no tables, its
-    preprocess is core.gaussians.preprocess's, its rgb and opa are what
-    composite builds the feature table from, and no preprocess launch is
-    counted."""
+    """On each route that composes, prepare hands composite the tables of
+    core.gaussians.preprocess (the feature table of its v2g_mb, colours or
+    the given ones, and opacity times its coefficient; conic | means2d;
+    its radii), bins its means2d and depths, and counts no preprocess
+    launch; the feature table takes a gradient only where an input
+    requires one."""
     cam, t, bg, kw = _case()
     colors = None
     if route == "requires_grad":
@@ -65,70 +77,58 @@ def test_prepare_composes_with_todays_values(route):
         inp = TR.prepare(*t, cam, bg, colors_precomp=colors, **kw)
         counters = profiling.snapshot()["counters"]
     assert "launches.preprocess" not in counters
-    assert inp.tables is None
-    ref = G.preprocess(*t, 1, cam)
-    for f in ("depths", "means2d", "radii", "conic", "opa_coef", "v2g_mb"):
-        assert torch.equal(getattr(inp.pre, f), getattr(ref, f)), f
-    assert torch.equal(inp.rgb, ref.rgb if colors is None else colors)
-    opa_flat = t[3].reshape(-1)
-    assert torch.equal(inp.opa, opa_flat + (ref.opa_coef - opa_flat))
-    assert inp.opa.requires_grad == (route == "requires_grad")
+    feat, extra, radii, ref = _composed_tables(t, colors, cam)
+    assert torch.equal(inp.feat, feat)
+    assert torch.equal(inp.extra, extra)
+    assert torch.equal(inp.radii, radii)
+    bng, _ = TR.bin_band(ref.means2d, ref.radii, ref.depths, cam,
+                         pair_cap=kw["pair_cap"],
+                         max_per_tile=kw["max_per_tile"], chunk=kw["chunk"])
+    for f in ("point_list", "tile_start", "tile_count", "num_pairs"):
+        assert torch.equal(getattr(inp.binning, f), getattr(bng, f)), f
+    assert inp.feat.requires_grad == (route == "requires_grad")
 
 
-def _kernel_shaped(inp, feat, extra):
-    """`inp` as prepare hands it on the kernel route: the tables, with rgb,
-    opa, pre.conic and pre.means2d views of them."""
-    rgb = feat[:, TR.ROW_RGB:TR.ROW_RGB + 3]
-    return inp._replace(
-        pre=inp.pre._replace(conic=extra[:, :3], means2d=extra[:, 3:5],
-                             rgb=rgb),
-        rgb=rgb, opa=feat[:, TR.ROW_OPA], tables=(feat, extra))
-
-
-def test_plain_version_and_the_tables_composite_takes():
-    """cuda_raster.preprocess on CPU tensors is the plain version: the
-    composed preprocess, _all_features of prepare's rgb and opa, and the
-    conic | means2d table, counting no launch.  composite renders the
-    same image from those tables as from the Preprocessed it builds them
-    from, and takes the tables it is handed (an opacity column of 0
-    leaves only the background)."""
-    cam, t, bg, kw = _case()
+@pytest.mark.parametrize("sh_degree", [0, 1, 2, 3])
+def test_plain_version_and_the_tables_composite_takes(sh_degree):
+    """rasterize._preprocess_impl, the preprocess kernel's plain version,
+    gives at each SH degree the composed route's (feat, extra, depths,
+    radii), which are what prepare hands composite, with no launch
+    counted.  composite renders from the tables it is handed as they are
+    (an opacity column of 0 leaves only the background)."""
+    cam, _, bg, kw = _case()
+    t = [torch.from_numpy(a) for a in torch_cases.make_gaussian_cloud(
+        np.random.default_rng(sh_degree), 96, sh_degree=sh_degree)]
     with profiling.record():
-        pre, feat, extra = cuda_raster.preprocess(*t, 1, cam)
+        feat, extra, depths, radii = TR._preprocess_impl(*t, sh_degree, cam)
+        inp = TR.prepare(*t, cam, bg, sh_degree=sh_degree, **kw)
         counters = profiling.snapshot()["counters"]
     assert "launches.preprocess" not in counters
-    inp = TR.prepare(*t, cam, bg, **kw)
-    for f in ("depths", "means2d", "radii", "conic", "rgb", "v2g_mb"):
-        assert torch.equal(getattr(pre, f), getattr(inp.pre, f)), f
-    assert torch.equal(feat, cuda_raster._all_features(inp.pre.v2g_mb,
-                                                        inp.rgb, inp.opa))
-    assert torch.equal(extra, torch.cat([inp.pre.conic, inp.pre.means2d], 1))
+    want_feat, want_extra, want_radii, ref = _composed_tables(t, None, cam,
+                                                              sh_degree)
+    assert torch.equal(feat, want_feat) and torch.equal(extra, want_extra)
+    assert torch.equal(depths, ref.depths) and torch.equal(radii, want_radii)
+    assert (torch.equal(inp.feat, feat) and torch.equal(inp.extra, extra)
+            and torch.equal(inp.radii, radii))
     out, _ = TR.composite(inp)
-    got, _ = TR.composite(_kernel_shaped(inp, feat, extra))
-    assert torch.equal(out, got) and float(out[..., 7].max()) > 0.1
+    assert float(out[..., 7].max()) > 0.1
     clear = feat.clone()
     clear[:, TR.ROW_OPA] = 0.0
-    empty, aux = TR.composite(_kernel_shaped(inp, clear, extra))
+    empty, aux = TR.composite(inp._replace(feat=clear))
     assert float(empty[..., 7].abs().max()) == 0.0
     assert bool((aux.final_T == 1).all())
 
 
-@pytest.mark.parametrize("field", ["rgb", "opa", "conic", "means2d"])
-def test_composite_refuses_a_field_replaced_over_the_tables(field):
-    """On the kernel route the tables are the one source of rgb, opa, conic
-    and means2d: a field replaced after prepare (even by equal values) is
-    not silently passed over; composite raises, naming it."""
-    cam, t, bg, kw = _case()
-    _, feat, extra = cuda_raster.preprocess(*t, 1, cam)
-    inp = _kernel_shaped(TR.prepare(*t, cam, bg, **kw), feat, extra)
-    TR.composite(inp)
-    if field in ("rgb", "opa"):
-        bad = inp._replace(**{field: getattr(inp, field).clone()})
-    else:
-        bad = inp._replace(pre=inp.pre._replace(
-            **{field: getattr(inp.pre, field).clone()}))
-    with pytest.raises(ValueError, match=field):
-        TR.composite(bad)
+def test_preprocess_kernel_refuses_cpu_tensors():
+    """cuda_raster.preprocess takes CUDA tensors only, as the compositing
+    wrappers do: CPU tensors raise ValueError before any build or launch
+    (prepare composes for them: rasterize._kernel_preprocess)."""
+    cam, t, _, _ = _case()
+    with profiling.record():
+        with pytest.raises(ValueError, match="CUDA"):
+            cuda_raster.preprocess(*t, 1, cam)
+        counters = profiling.snapshot()["counters"]
+    assert "launches.preprocess" not in counters
 
 
 def test_sh_direction_norm_sums_left_to_right(monkeypatch):

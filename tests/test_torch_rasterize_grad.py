@@ -20,7 +20,6 @@ import pytest
 import torch
 
 from f3d_gaus_tpu.ops import rasterize as JR
-from f3d_gaus_torch.ops import cuda_raster
 from f3d_gaus_torch.ops import rasterize as TR
 import torch_cases  # tests/ is on sys.path under pytest (rootdir-less dir)
 
@@ -157,7 +156,7 @@ def test_chunk_eval_vjp_matches_autograd():
     cam, cloud, bg, kw = CASES["cloud96_mpt128"]
     inp = TR.prepare(*[torch.from_numpy(a) for a in cloud], cam,
                      torch.from_numpy(bg), device="cpu", **kw)
-    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
+    feat = inp.feat.detach()
     b = inp.binning
     _, _, wfeat = TR._gather_windows(feat, b.point_list, b.tile_start,
                                      b.tile_count, kw["max_per_tile"])

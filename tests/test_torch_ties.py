@@ -48,7 +48,6 @@ from f3d_gaus_torch.core.device import abs_tie, clip_tie
 from f3d_gaus_torch.models import clip as TC
 from f3d_gaus_torch.models import convert as TConv
 from f3d_gaus_torch.models import vgg as TV
-from f3d_gaus_torch.ops import cuda_raster
 from f3d_gaus_torch.ops import rasterize as TR
 from f3d_gaus_torch.train import losses as TL
 from f3d_gaus_torch.train import per_scene as TPS
@@ -140,9 +139,8 @@ def _crafted_table(seed=0):
     name, cam, cloud, bg, kw = torch_cases.small_cases(seed)[0]
     inp = TR.prepare(*[torch.from_numpy(a) for a in cloud], cam,
                      torch.from_numpy(bg), device="cpu", **kw)
-    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
-    feat = torch_cases.zero_qk(feat)
-    extra = torch.cat([inp.pre.conic, inp.pre.means2d], 1).detach()
+    feat = torch_cases.zero_qk(inp.feat.detach())
+    extra = inp.extra.detach()
     return feat, extra, inp.binning, inp.statics, inp.bg
 
 
@@ -186,7 +184,7 @@ def _num_ties(inp):
     """Window pairs that pass the decision (t > 0.2, alpha >= 1/255) and
     whose num = |b x Md|^2 evaluates to exactly 0 in the plain f32 version,
     and the passing pairs in all."""
-    feat = cuda_raster._all_features(inp.pre.v2g_mb, inp.rgb, inp.opa).detach()
+    feat = inp.feat.detach()
     b, s = inp.binning, inp.statics
     _, valid, wall, n = TR._windows(feat, b.point_list, b.tile_start,
                                     b.tile_count, s)
