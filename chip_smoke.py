@@ -1307,6 +1307,16 @@ def launch_counts():
                  for k in ("fwd", "bwd", "decide", "integrate", "preprocess"))
 
 
+def graph_counts():
+    """(CUDA graphs captured, graph replays) counted since the program's
+    profiling.record() began: a render stage of two or more undifferentiated
+    views captures one graph a batch element and replays it for each other
+    view (pipeline/renderer.py)."""
+    from f3d_gaus_torch.utils import profiling
+    c = profiling.snapshot()["counters"]
+    return c.get("graph.captures", 0), c.get("graph.replays", 0)
+
+
 def counted(fn, k1=0, k2=0, decide=0):
     """fn() counted by the program's profiling.record(), required to
     launch K1's compositing pass k1 times, K2's backward pass k2 times and
@@ -1673,8 +1683,10 @@ def preprocess_vs_plain(dev):
     edge clouds of tests/torch_cases.preprocess_cases: every field and
     table the kernel writes equal bit for bit, and so the binning.  At the
     three shapes, in PREPROCESS_TURNS turns of (plain, kernel, kernel,
-    plain): the kernel's device time a launch with the L2 flushed before
-    each (cold_ms, the one held to the bound) and back to back (warm_ms),
+    plain), the kernel reading its camera from a row in device memory
+    staged once (as a render stage's camera table row): its device time a
+    launch with the L2 flushed before each (cold_ms, the one held to the
+    bound) and back to back (warm_ms),
     its CUDA-event and host times a wrapper call; the plain version's
     device time and kernels a call, its host time a call and its
     CUDA-event time a call (plain_ms: its host issues about 600 kernels one
@@ -1684,6 +1696,7 @@ def preprocess_vs_plain(dev):
     import collections
     import torch
     from f3d_gaus_torch.core import gaussians as G
+    from f3d_gaus_torch.core.device import upload
     from f3d_gaus_torch.ops import binning as B
     from f3d_gaus_torch.ops import cuda_raster
     from f3d_gaus_torch.ops import rasterize as R
@@ -1723,8 +1736,13 @@ def preprocess_vs_plain(dev):
                 {name: {k: v for k, v in gaps.items() if v["differ"]}})
         del got, want
         if i < 3:
+            # the camera row in device memory, staged once, as a stage's
+            # table row is
+            row = upload(cuda_raster.camera_scalars(cam, ks), dev)
+
             def kernel():
-                return cuda_raster.preprocess(*t, deg, cam, ks)
+                return cuda_raster.preprocess(*t, deg, cam, ks,
+                                              camera_row=row)
 
             def plain():
                 with torch.no_grad():
@@ -1802,6 +1820,7 @@ def serving_path(args, dev, card):
         wall_s = time.perf_counter() - t0
         launches, launches_bwd, launches_decide, _, launches_pre = \
             launch_counts()
+        captures, replays = graph_counts()
     peak = torch.cuda.max_memory_allocated()
 
     P_px = cfg.resolution ** 2
@@ -1823,13 +1842,18 @@ def serving_path(args, dev, card):
             f"{launches} K1 / {launches_decide} decision / {launches_bwd} K2 "
             f"/ {launches_pre} preprocess launches for {res.attempts} "
             "attempts")
+    require(captures == 2 * res.attempts
+            and replays == (n_agg + n_nvs - 2) * res.attempts,
+            f"{captures} graphs captured, {replays} replays for "
+            f"{res.attempts} attempts")
     emit("main_path", card=card, config="PipelineConfig()",
          num_nvs_views=cfg.num_nvs_views, params=n_params,
          attempts=res.attempts, replans=replans,
          caps={"pair_cap": res.cfg.pair_cap,
                "max_per_tile": res.cfg.max_per_tile},
          kernel_launches=launches, decide_launches=launches_decide,
-         preprocess_launches=launches_pre, wall_s=wall_s,
+         preprocess_launches=launches_pre, graph_captures=captures,
+         graph_replays=replays, wall_s=wall_s,
          stage_s_last_attempt=timings, peak_allocated_bytes=peak,
          merged_points=int(res.merged["xyz"].shape[1]))
 
@@ -2620,8 +2644,9 @@ def mesh_path(args, dev, card):
     weights, its launches counted inside profiling.record() and
     integrate's overflow count set to 0 just before it.  Requires a
     non-empty mesh that reads back, no truncated view, 129 x (1 + 8)
-    field-query launches and one K1, decision pass and preprocess launch a
-    render."""
+    field-query launches, one K1, decision pass and preprocess launch a
+    render, and two CUDA graphs captured an attempt (the aggregation and
+    orbit stages), replayed for every other view."""
     import contextlib
     import io
     import shutil
@@ -2656,6 +2681,7 @@ def mesh_path(args, dev, card):
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         n = launch_counts()
+        captures, replays = graph_counts()
     launches = {"integrate": n[3], "raster_fwd": n[0], "gof_decide": n[2],
                 "raster_bwd": n[1], "preprocess": n[4]}
     overflow_views = TI.overflow_views
@@ -2677,6 +2703,10 @@ def mesh_path(args, dev, card):
             and launches["raster_fwd"] == launches["gof_decide"]
             == launches["preprocess"] == n_renders
             and launches["raster_bwd"] == 0, launches)
+    require(captures == 2 * stats["attempts"]
+            and replays == n_renders - captures,
+            f"{captures} graphs captured, {replays} replays for "
+            f"{n_renders} renders")
     emit("mesh_path", card=card, config="PipelineConfig()",
          weights="seeded EDM init, out.bias[3] = 1.0 (opacity logit)",
          num_nvs_views=args.num_nvs_views, method=stats["method"],
@@ -2685,6 +2715,7 @@ def mesh_path(args, dev, card):
                "max_per_tile": stats["max_per_tile"]},
          counts=stats["counts"], mesh_stage_s=stats["stage_s"],
          cli_wall_s=wall_s, peak_allocated_bytes=peak, launches=launches,
+         graph_captures=captures, graph_replays=replays,
          overflow_views=overflow_views,
          cli_log=[ln for ln in lines if "replanning" in ln or "mesh:" in ln])
     return {"out_dir": d, "stats": stats, "launches": launches,

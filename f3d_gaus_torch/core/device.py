@@ -1,6 +1,7 @@
 """Device selection and the gradient ties shared by the port's modules."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -25,6 +26,20 @@ def resolve_device(device=None, like: torch.Tensor | None = None) -> torch.devic
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return device
+
+
+def upload(array, device: torch.device) -> torch.Tensor:
+    """A float32 copy of the host `array` on `device`, made without the
+    host waiting: on CUDA through pinned memory and a non-blocking copy
+    (torch's caching host allocator keeps the pinned buffer until the copy
+    has run), so no stream is synchronised, as a copy from pageable memory
+    would; elsewhere a copy of the array."""
+    host = np.asarray(array, np.float32)
+    if device.type != "cuda":
+        return torch.tensor(host, device=device)
+    pinned = torch.empty(host.shape, dtype=torch.float32, pin_memory=True)
+    pinned.numpy()[...] = host
+    return pinned.to(device, non_blocking=True)
 
 
 # Clamps on a differentiable path follow jnp.maximum / jnp.minimum /

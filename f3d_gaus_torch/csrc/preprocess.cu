@@ -30,9 +30,13 @@
 // and the results equal the composed route's bit for bit (the binning
 // sorts and counts from depths, means2d and radii, which must not move).
 // Each comment names the expression it mirrors.  The camera's constants
-// arrive as f32 values rounded where PyTorch rounds them
-// (cuda_raster.camera_scalars); the literals below are written as double
-// constants cast to float, the rounding PyTorch applies to a Python float.
+// are f32 values rounded where PyTorch rounds them
+// (cuda_raster.camera_scalars), read from device memory: each block stages
+// the kCameraFloats of the row into shared memory before its Gaussians,
+// so a CUDA graph that captured the launch reads whatever camera was
+// copied into the row before its replay (pipeline/renderer.py's stage
+// table).  The literals below are written as double constants cast to
+// float, the rounding PyTorch applies to a Python float.
 // torch.maximum / minimum propagate NaN, so max_of / min_of do too.
 //
 // What bounds it on this card: bytes.  At SH degree 1 a Gaussian reads 92
@@ -45,8 +49,6 @@
 // by a warp's loads.
 
 #include <cuda_runtime.h>
-
-#include <string.h>
 
 namespace {
 
@@ -171,9 +173,14 @@ __device__ __forceinline__ void store_rows(float* dst, const float* src,
 }
 
 __global__ void __launch_bounds__(kThreads)
-preprocess_kernel(Params p, Camera c) {
+preprocess_kernel(Params p, const float* __restrict__ camera) {
   __shared__ __align__(16) float s_feat[kThreads * kNFeat];
   __shared__ __align__(16) float s_extra[kThreads * kExtra];
+  __shared__ Camera s_cam;
+  if (threadIdx.x < kCameraFloats)
+    reinterpret_cast<float*>(&s_cam)[threadIdx.x] = camera[threadIdx.x];
+  __syncthreads();
+  const Camera& c = s_cam;
   const int base = blockIdx.x * kThreads;
   const int rows = min(kThreads, p.num - base);
   const int i = base + threadIdx.x;
@@ -387,8 +394,8 @@ preprocess_kernel(Params p, Camera c) {
 }  // namespace
 
 // One launch over `num_gaussians` Gaussians; `camera` points to the
-// kCameraFloats host floats of cuda_raster.camera_scalars, copied into the
-// kernel's arguments (no upload, no sync).
+// kCameraFloats floats of cuda_raster.camera_scalars in device memory,
+// which the kernel reads when it runs.
 extern "C" int f3d_preprocess(
     int device, const float* means, const float* scales, const float* quats,
     const float* opacity, const float* shs, int num_gaussians, int sh_stride,
@@ -397,11 +404,9 @@ extern "C" int f3d_preprocess(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (num_gaussians == 0) return 0;
-  Camera c;
-  memcpy(&c, camera, sizeof(Camera));
   Params p{means, scales,    quats, opacity, shs,  num_gaussians,
            sh_stride, sh_degree, feat,  extra,   depths, radii};
   preprocess_kernel<<<(num_gaussians + kThreads - 1) / kThreads, kThreads, 0,
-                      (cudaStream_t)stream>>>(p, c);
+                      (cudaStream_t)stream>>>(p, camera);
   return (int)cudaGetLastError();
 }

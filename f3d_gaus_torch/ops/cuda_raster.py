@@ -25,8 +25,9 @@ in rasterize.RenderAux's order.
 says whether the pair passes t > 0.2 and alpha >= 1/255 inside its tile's
 window.  `composite_fwd` and `composite_bwd` launch it and then the
 compositing or backward pass over the set bits.  `integrate` launches the
-field query.  `preprocess` launches the per-Gaussian preprocess and writes
-the tables compositing reads.  Every wrapper accepts only CUDA tensors.
+field query.  `preprocess` launches the per-Gaussian preprocess, which
+reads its camera from a row in device memory, and writes the tables
+compositing reads.  Every wrapper accepts only CUDA tensors.
 A band of a frame (rasterize.render(tile_rows=...)) launches the same
 kernels with the statics' row_off, the global tile row of the band's
 first row; the rays keep the full frame's half width and height.
@@ -46,6 +47,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..core.device import upload
 from ..utils import profiling
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -451,7 +453,8 @@ CAMERA_FLOATS = 43   # csrc/preprocess.cu:kCameraFloats
 def camera_scalars(camera, kernel_size: float = 0.0,
                    scale_modifier: float = 1.0) -> list:
     """The camera constants of core.gaussians.preprocess as the f32 values
-    its arithmetic uses, in csrc/preprocess.cu's `Camera` order:
+    its arithmetic uses, the row csrc/preprocess.cu reads from device
+    memory, in its `Camera` order:
     world_view and full_proj (row-major), cam_center, focal_x, focal_y,
     the clip limits 1.3 tan_fov, kernel_size, scale_modifier, width and
     height.  Each is the composed route's own expression, rounded to f32
@@ -468,7 +471,8 @@ def camera_scalars(camera, kernel_size: float = 0.0,
 
 
 def preprocess(means, scales, quats, opacities, shs, sh_degree: int, camera,
-               kernel_size: float = 0.0, scale_modifier: float = 1.0):
+               kernel_size: float = 0.0, scale_modifier: float = 1.0,
+               camera_row=None):
     """The preprocess of a render that no gradient flows through, in one
     launch of csrc/preprocess.cu: (feat, extra, depths, radii), the
     (P, NFEAT) feature table (its opacity column the opacity times its
@@ -477,8 +481,14 @@ def preprocess(means, scales, quats, opacities, shs, sh_degree: int, camera,
     plain version rasterize._preprocess_impl gives.  All five inputs must
     be CUDA tensors, float32 and contiguous: means and scales (P, 3), quats
     (P, 4), opacities P values, shs (P, K, 3) with K >= (sh_degree + 1)^2,
-    sh_degree 0-3.  No host sync: the camera goes by value in the launch's
-    arguments."""
+    sh_degree 0-3.
+
+    The kernel reads the camera from device memory: `camera_row`, the
+    (CAMERA_FLOATS,) float32 row of camera_scalars(camera, kernel_size,
+    scale_modifier) on the inputs' device, read when the kernel runs (a
+    CUDA graph that captured the launch reads what the row holds at its
+    replay); None stages that row with core.device.upload.  No host
+    sync."""
     P = means.shape[0]
     if not 0 <= sh_degree <= 3:
         raise ValueError(f"sh_degree must be 0-3, got {sh_degree}")
@@ -495,21 +505,24 @@ def preprocess(means, scales, quats, opacities, shs, sh_degree: int, camera,
         raise ValueError(f"shs must be (P, >= {(sh_degree + 1) ** 2}, 3), "
                          f"got {tuple(shs.shape)}")
     dev = means.device
+    if camera_row is None:
+        camera_row = upload(camera_scalars(camera, kernel_size,
+                                           scale_modifier), dev)
+    _check("camera_row", camera_row, torch.float32, (CAMERA_FLOATS,))
     for name, t in (("scales", scales), ("quats", quats),
-                    ("opacities", opacities), ("shs", shs)):
+                    ("opacities", opacities), ("shs", shs),
+                    ("camera_row", camera_row)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, means on {dev}")
     feat = torch.empty((P, NFEAT), dtype=torch.float32, device=dev)
     extra = torch.empty((P, 5), dtype=torch.float32, device=dev)
     depths = torch.empty(P, dtype=torch.float32, device=dev)
     radii = torch.empty(P, dtype=torch.int32, device=dev)
-    cam = (ctypes.c_float * CAMERA_FLOATS)(
-        *camera_scalars(camera, kernel_size, scale_modifier))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = load()["preprocess"].f3d_preprocess(
         _device_index(dev), means.data_ptr(), scales.data_ptr(),
         quats.data_ptr(), opacities.data_ptr(), shs.data_ptr(), P,
-        shs.shape[1] * 3, sh_degree, ctypes.addressof(cam), feat.data_ptr(),
+        shs.shape[1] * 3, sh_degree, camera_row.data_ptr(), feat.data_ptr(),
         extra.data_ptr(), depths.data_ptr(), radii.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"preprocess kernel launch failed: CUDA error {err}")

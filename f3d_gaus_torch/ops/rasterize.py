@@ -610,13 +610,15 @@ def prepare(means3d, scales, quats, opacities, shs, camera, bg=None, *,
             scale_modifier: float = 1.0, pair_cap: int = 1 << 18,
             max_per_tile: int = 1024, chunk: int = 128, colors_precomp=None,
             means2d_stats=None, mask=None, device=None,
-            tile_rows=None) -> CompositeInputs:
+            tile_rows=None, camera_row=None) -> CompositeInputs:
     """Preprocess and bin one Gaussian set for one camera (the part of
     `render` before compositing; same arguments).  CUDA tensors that
     autograd records nothing of, with no colors_precomp, take the
-    preprocess kernel (cuda_raster.preprocess, one launch); everything else
-    composes the same tables in _preprocess_impl.  Spans (utils.profiling):
-    `prepare`, with `preprocess` and bin_gaussians's `binning` inside."""
+    preprocess kernel (cuda_raster.preprocess, one launch, which reads the
+    camera from `camera_row`, or from a row it stages when that is None);
+    everything else composes the same tables in _preprocess_impl from
+    `camera`.  Spans (utils.profiling): `prepare`, with `preprocess` and
+    bin_gaussians's `binning` inside."""
     dev = resolve_device(device, means3d if torch.is_tensor(means3d) else None)
     gaussians = [_as_tensor(a, dev)
                  for a in (means3d, scales, quats, opacities, shs)]
@@ -624,7 +626,7 @@ def prepare(means3d, scales, quats, opacities, shs, camera, bg=None, *,
         if _kernel_preprocess(dev, gaussians, colors_precomp):
             feat, extra, depths, radii = cuda_raster.preprocess(
                 *(a.contiguous() for a in gaussians), sh_degree, camera,
-                kernel_size, scale_modifier)
+                kernel_size, scale_modifier, camera_row)
         else:
             feat, extra, depths, radii = _preprocess_impl(
                 *gaussians, sh_degree, camera, kernel_size, scale_modifier,
@@ -720,7 +722,7 @@ def render(means3d, scales, quats, opacities, shs, camera, bg=None, *,
            scale_modifier: float = 1.0, pair_cap: int = 1 << 18,
            max_per_tile: int = 1024, chunk: int = 128, colors_precomp=None,
            means2d_stats=None, mask=None, backend: str = "auto", device=None,
-           tile_rows=None):
+           tile_rows=None, camera_row=None):
     """Render one Gaussian set through one camera, differentiably in the
     five Gaussian inputs (and colors_precomp).
 
@@ -737,6 +739,12 @@ def render(means3d, scales, quats, opacities, shs, camera, bg=None, *,
     unit of parallel/sharded.py); the images are then n_rows * 16 rows
     high.  A band of CUDA tensors runs the same kernels as a frame.
 
+    camera_row: optional, for the preprocess kernel's route only: the
+    (cuda_raster.CAMERA_FLOATS,) float32 device row of
+    cuda_raster.camera_scalars(camera, kernel_size, scale_modifier), which
+    the kernel reads when it runs (pipeline/renderer.py's stage table);
+    None stages it from `camera`.
+
     Returns a dict with keys render (3,H,W), rendered_normal (camera space,
     unnormalized), rendered_depth, rendered_alpha, distortion_map, out9,
     radii, aux, binning and overflow (a 0-dim bool tensor: True iff
@@ -747,7 +755,8 @@ def render(means3d, scales, quats, opacities, shs, camera, bg=None, *,
                   scale_modifier=scale_modifier, pair_cap=pair_cap,
                   max_per_tile=max_per_tile, chunk=chunk,
                   colors_precomp=colors_precomp, means2d_stats=means2d_stats,
-                  mask=mask, device=device, tile_rows=tile_rows)
+                  mask=mask, device=device, tile_rows=tile_rows,
+                  camera_row=camera_row)
     out, aux = composite(inp, backend)
     s = inp.statics
     # a band's image is its own grid_y * 16 rows high

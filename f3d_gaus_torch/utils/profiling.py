@@ -18,6 +18,11 @@ holds what the program records while tracing is on:
   events) and, while tracing is on, closes a span per stage.
 * `snapshot()` reads the registry: per span name the calls, host ms, self
   host ms and device ms, and the counters' totals.
+* `captured()` marks a CUDA graph's capture, which runs no work: spans
+  opened inside keep their host interval only (no CUDA event), and what
+  `count` receives there is kept for the graph; `replayed` counts one
+  replay (`graph.replays`) and, while tracing is on, adds what the capture
+  counted again, so a replayed render counts as an eager one does.
 
 Tracing is on while any torch.profiler records (a new profiler session
 clears the registry) and inside `record()` (which clears it too).  Off,
@@ -156,8 +161,10 @@ def _new_event():
 
 
 def _event():
-    """_new_event(), where CUDA is in use (None elsewhere)."""
-    return _new_event() if torch.cuda.is_initialized() else None
+    """_new_event(), where CUDA is in use and no graph is being captured
+    (None elsewhere)."""
+    return (_new_event() if _CAPTURE is None and torch.cuda.is_initialized()
+            else None)
 
 
 class _Off:
@@ -173,6 +180,9 @@ class _Off:
 
 _OFF = _Off()
 _COUNT_LOCK = threading.Lock()
+# what `count` received since the innermost open `captured()` began, or
+# None outside every capture
+_CAPTURE = None
 
 
 def span(name: str):
@@ -196,7 +206,11 @@ def spanned(name: str):
 
 def count(name: str, value=1):
     """Add `value` (an int, or a 0-d tensor summed only by `snapshot`, so
-    no kernel and no sync here) to counter `name` while tracing is on."""
+    no kernel and no sync here) to counter `name` while tracing is on;
+    inside `captured()` keep it for the graph's replays instead."""
+    if _CAPTURE is not None:
+        _CAPTURE.append((name, value))
+        return
     if not (_REG.depth or _ap._is_profiler_enabled):
         return
     with _COUNT_LOCK:   # autograd's device threads count the backward
@@ -216,6 +230,33 @@ def record():
         yield
     finally:
         _REG.depth -= 1
+
+
+@contextlib.contextmanager
+def captured():
+    """The block captures a CUDA graph, which runs nothing until it is
+    replayed: spans opened inside record no CUDA event (they keep their
+    host interval), and the counts made inside go to the yielded list of
+    (name, value) instead of the registry, whether tracing is on or not;
+    hand it to `replayed` at each replay."""
+    global _CAPTURE
+    outer, _CAPTURE = _CAPTURE, []
+    try:
+        yield _CAPTURE
+    finally:
+        _CAPTURE = outer
+
+
+def replayed(tally: list):
+    """While tracing is on, count one replay of a graph whose capture
+    counted `tally` (`captured`): `graph.replays`, and each of the tally's
+    counts again, a device tensor as a copy made now (the graph's next
+    replay overwrites the tensor itself)."""
+    if not (_REG.depth or _ap._is_profiler_enabled):
+        return
+    count("graph.replays")
+    for name, value in tally:
+        count(name, value.clone() if torch.is_tensor(value) else value)
 
 
 def records() -> list:

@@ -3,14 +3,17 @@ csrc/raster_fwd.cu, csrc/raster_bwd.cu, the field query
 csrc/integrate.cu, the preprocess csrc/preprocess.cu) against their plain
 PyTorch versions on the card, one
 feed-forward training step, one per-scene training step, one mesh
-extraction and one serving request at planned caps there.  Needs a CUDA
-device and nvcc; skips elsewhere.
+extraction and one serving request at planned caps there, and the render
+stages that run as CUDA graphs (pipeline/renderer.py) against the same
+stages rendered eagerly.  Needs a CUDA device and nvcc; skips elsewhere.
 Imports no JAX, so on the card's machine it runs without the JAX
 package's conftest:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 """
 import functools
+import math
+import types
 
 import numpy as np
 import pytest
@@ -26,6 +29,7 @@ from f3d_gaus_torch.ops import binning as TB
 from f3d_gaus_torch.pipeline import config as TCfg
 from f3d_gaus_torch.pipeline import cycle as TC
 from f3d_gaus_torch.pipeline import dataset as TD
+from f3d_gaus_torch.pipeline import renderer as TRend
 from f3d_gaus_torch.train import feedforward as TF
 from f3d_gaus_torch.train import per_scene as TPS
 from f3d_gaus_torch.utils import profiling
@@ -700,3 +704,209 @@ def test_request_preprocess_kernel_equals_composed(cuda, monkeypatch):
                       (res.agg_views, ref.agg_views)):
         for k in want:
             assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("case", PREPROCESS_CASES)
+def test_preprocess_reads_its_camera_from_device_memory(cuda, case):
+    """The preprocess kernel reads its camera from the device row it is
+    given when it runs: with another camera's row written into the same
+    row after a launch was queued, the next launch follows the row; both
+    equal the composed route at their camera bit for bit (the 5 clouds
+    of test_preprocess_kernel_matches_composed)."""
+    cam, cloud, deg, ks = _preprocess_cases()[case]
+    moved = np.array(cam.world_view, np.float32)
+    moved[3, :3] += np.float32([0.05, -0.03, 0.1])    # the translation row
+    other = cam._replace(world_view=moved)
+    t = [torch.from_numpy(a).to(cuda) for a in cloud]
+    row = torch.tensor(cuda_raster.camera_scalars(cam, ks),
+                       dtype=torch.float32, device=cuda)
+    first = cuda_raster.preprocess(*t, deg, cam, ks, camera_row=row)
+    row.copy_(torch.tensor(cuda_raster.camera_scalars(other, ks)))
+    second = cuda_raster.preprocess(*t, deg, cam, ks, camera_row=row)
+    for got, at in ((first, cam), (second, other)):
+        want = TR._preprocess_impl(*t, deg, at, ks)
+        gaps = {f: _bit_gaps(a, b) for f, a, b in zip(
+            ("feat", "extra", "depths", "radii"), got, want)}
+        assert not any(gaps.values()), {k: v for k, v in gaps.items() if v}
+    assert not torch.equal(first[2], second[2])
+    with pytest.raises(ValueError):
+        cuda_raster.preprocess(*t, deg, cam, ks, camera_row=row[:-1])
+    with pytest.raises(ValueError):
+        cuda_raster.preprocess(*t, deg, cam, ks, camera_row=row.cpu())
+
+
+def _eager_stages(monkeypatch):
+    """Every render stage from here on renders eagerly (the same kernels,
+    one render at a time)."""
+    monkeypatch.setattr(TRend, "_graph_route", lambda *a: False)
+
+
+def _counted(fn):
+    with profiling.record():
+        out = fn()
+        torch.cuda.synchronize()
+        return out, profiling.snapshot()["counters"]
+
+
+def _serving_request(cuda, batch):
+    cfg = TCfg.PipelineConfig()
+    model = TP.GaussianPredictor(cfg.predictor_config(),
+                                 torch.Generator().manual_seed(0)).to(cuda)
+    cams = TD.canonical_cameras(cfg)
+    rng = np.random.default_rng(2)
+    r = cfg.resolution
+    images = rng.uniform(size=(batch, r, r, 3)).astype(np.float32)
+    depth = rng.uniform(6.667, 8.667, size=(batch, r, r)).astype(np.float32)
+
+    def request():
+        res = TC.run_nvs_replanned(model, cfg, cams, images, depth,
+                                   device=cuda)
+        assert res.attempts == 1
+        return {"renders": res.renders, "agg_views": res.agg_views,
+                "merged": res.merged}
+    return request, 2, 8 + 129
+
+
+def _recon_request(cuda, batch):
+    from f3d_gaus_torch.models import gslrm as G
+    from f3d_gaus_torch.models import gslrm_reference as GR
+    from f3d_gaus_torch.pipeline import reconstruct as TRec
+    small = G.GSLRMConfig(views=2, resolution=32, patch=8, width=64,
+                          layers=2, heads=4, mlp=256)
+    ref = GR.GSLRM(small, torch.Generator().manual_seed(0))
+    model = G.GSLRM(small, None)
+    model.load_state_dict(ref.state_dict())
+    model = model.eval().to(cuda)
+    images = torch.rand(batch, 2, 32, 32, 3,
+                        generator=torch.Generator().manual_seed(1)).to(cuda)
+    wv = torch_cases.turntable_views([0.4, 0.4 + np.pi]).astype(np.float32)
+    cfg = TCfg.PipelineConfig(resolution=32, fov_deg=math.degrees(0.6911),
+                              max_sh_degree=0)
+    frames = [torch_cases.turntable_camera(a, 32, math.degrees(0.6911))
+              for a in np.arange(32) * 2 * np.pi / 32]
+    orbit = types.SimpleNamespace(
+        world_view=np.stack([c.world_view for c in frames]),
+        full_proj=np.stack([c.full_proj for c in frames]),
+        cam_centers=np.stack([c.cam_center for c in frames]))
+
+    def request():
+        res = TRec.run_gslrm(model, cfg, images, np.repeat(
+            wv[None], batch, 0), orbit, device=cuda)
+        assert res.attempts == 1
+        return {"renders": res.renders}
+    return request, 1, 32
+
+
+GRAPH_REQUESTS = {"serve_b1": (_serving_request, 1),
+                  "serve_b2": (_serving_request, 2),
+                  "recon_b1": (_recon_request, 1)}
+
+
+@pytest.mark.parametrize("case", list(GRAPH_REQUESTS))
+def test_graph_stages_equal_eager_stages(cuda, monkeypatch, case):
+    """A planned serving request (its aggregation and orbit stages) at
+    B = 1 and B = 2, and a reconstruction request's turntable, rendered as
+    CUDA graphs equal the same requests rendered eagerly, bit for bit, in
+    every returned field and the overflow map.  Each stage captures one
+    graph a batch element and replays it for every view but the first;
+    the counters read as the eager request's (a replay counts what its
+    capture counted, binning.pairs its own num_pairs), with
+    graph.captures and graph.replays beside them."""
+    make, batch = GRAPH_REQUESTS[case]
+    request, stages, views = make(cuda, batch)
+    got, counters = _counted(request)
+    assert counters["graph.captures"] == stages * batch
+    assert counters["graph.replays"] == (views - stages) * batch
+    assert counters["launches.preprocess"] == views * batch
+    _eager_stages(monkeypatch)
+    want, eager = _counted(request)
+    assert "graph.captures" not in eager and "graph.replays" not in eager
+    assert {k: v for k, v in counters.items()
+            if not k.startswith("graph.")} == eager
+    assert eager["launches.decide"] == eager["launches.fwd"] == views * batch
+    for part in want:
+        for k in want[part]:
+            assert got[part][k].shape == want[part][k].shape, (part, k)
+            assert torch.equal(got[part][k], want[part][k]), (part, k)
+
+
+def _stage_case(cuda, views=12, n=20000):
+    """A Gaussian set (B = 1) and an orbit stage of `views` views at 256²."""
+    cloud = torch_cases.make_gaussian_cloud(np.random.default_rng(4), n,
+                                            spread=0.5)
+    t = [torch.from_numpy(a).to(cuda) for a in cloud]
+    g = {"xyz": t[0][None], "scaling": t[1][None], "rotation": t[2][None],
+         "opacity": t[3][None], "features_dc": t[4][None, :, :1],
+         "features_rest": t[4][None, :, 1:]}
+    return g, torch_cases.orbit_views(views)
+
+
+def _stage(g, cs, cfg, cuda):
+    return TRend.render_views_batched(g, cs.world_view, cs.full_proj,
+                                      cs.cam_centers, torch.zeros(3,
+                                                                  device=cuda),
+                                      cfg)
+
+
+def test_graph_stage_at_short_caps_flags_the_eager_truncations(
+        cuda, monkeypatch):
+    """A stage rendered at caps that some of its views need more than:
+    the graph route flags the same truncated views as the eager route and
+    gives the same truncated renders, bit for bit."""
+    g, cs = _stage_case(cuda)
+    cfg = TCfg.PipelineConfig()
+    cam = TRend._camera(cs.world_view[0], cs.full_proj[0], cs.cam_centers[0],
+                        cfg)
+    need = [TB.footprint_need(g["xyz"], g["scaling"], g["rotation"],
+                              cs.world_view[v:v + 1], cs.full_proj[v:v + 1],
+                              cam)["pairs"] for v in range(len(cs.world_view))]
+    short = sorted(need)[len(need) // 2] // 256 * 256
+    cfg = TCfg.PipelineConfig(pair_cap=short, max_per_tile=1 << 14)
+    got = _stage(g, cs, cfg, cuda)
+    _eager_stages(monkeypatch)
+    want = _stage(g, cs, cfg, cuda)
+    assert bool(want["overflow"].any()) and not bool(want["overflow"].all())
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_graph_stage_makes_no_host_sync(cuda):
+    """A stage's render loop on the graph route (after one stage has built
+    the kernels and the pools) runs with torch.cuda.set_sync_debug_mode
+    ("error"): no host sync, the camera table's upload included."""
+    g, cs = _stage_case(cuda)
+    cfg = TCfg.PipelineConfig()
+    want = _stage(g, cs, cfg, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = _stage(g, cs, cfg, cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_graph_stage_traces_one_launch_a_view(cuda):
+    """Under torch.profiler a graph stage's device trace holds one
+    preprocess, decision and compositing kernel a view, the eager view's
+    and each replay's (the benchmark reads K1's kernels in view order),
+    and the program's registry one `replay` span a replayed view."""
+    from torch.profiler import ProfilerActivity, profile
+    g, cs = _stage_case(cuda, views=9)
+    cfg = TCfg.PipelineConfig()
+    _stage(g, cs, cfg, cuda)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _stage(g, cs, cfg, cuda)
+        torch.cuda.synchronize()
+        snap = profiling.snapshot()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    for name in ("preprocess_kernel", "gof_decide", "raster_fwd"):
+        assert sum(name in k for k in kernels) == 9, name
+    assert snap["spans"]["replay"]["calls"] == 8
+    assert snap["counters"]["graph.replays"] == 8
+    assert snap["counters"]["launches.fwd"] == 9

@@ -121,6 +121,7 @@ def test_recon_request_preprocess_kernel(cuda, monkeypatch):
             return res, profiling.snapshot()["counters"]
     res, counters = request()
     assert res.attempts == 1 and counters["launches.preprocess"] == 32
+    assert counters["graph.captures"] == 1 and counters["graph.replays"] == 31
     monkeypatch.setattr(TR, "_kernel_preprocess", lambda *a: False)
     want, counters = request()
     assert "launches.preprocess" not in counters
