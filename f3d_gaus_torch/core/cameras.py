@@ -234,19 +234,22 @@ def orbit_camera_set(num_frames: int, fov_deg: float, radius: float,
 
 
 def plucker_rays(world_view: torch.Tensor, tan_fovx: float, tan_fovy: float,
-                 height: int, width: int):
+                 height: int, width: int, rows: int | None = None):
     """Per-pixel rays of cameras given by row-vector world_view tensors
     (..., 4, 4), in their dtype and on their device.
 
     Pixel (i, j) looks through its centre, in 3DGS's convention: x at NDC
     (2j + 1) / width - 1 times tan_fovx, y at (2i + 1) / height - 1 times
-    tan_fovy (+y down, +z forward, COLMAP's axes).  Returns the camera
-    centres o (..., 3), the unit world directions d (..., H, W, 3) and the
-    Plücker coordinates (o × d, d) (..., H, W, 6)."""
+    tan_fovy (+y down, +z forward, COLMAP's axes).  `rows` (default
+    `height`) rows are built: rows past the frame's height continue its
+    pixel spacing, the rays of padding below the frame.  Returns the
+    camera centres o (..., 3), the unit world directions d (..., rows, W,
+    3) and the Plücker coordinates (o × d, d) (..., rows, W, 6)."""
     dt, dev = world_view.dtype, world_view.device
     rot = world_view[..., :3, :3]           # x_view = x_world @ rot + t
     o = -(world_view[..., 3:, :3] @ rot.transpose(-1, -2))[..., 0, :]
-    ys = ((2 * torch.arange(height, dtype=dt, device=dev) + 1) / height
+    rows = height if rows is None else rows
+    ys = ((2 * torch.arange(rows, dtype=dt, device=dev) + 1) / height
           - 1) * tan_fovy
     xs = ((2 * torch.arange(width, dtype=dt, device=dev) + 1) / width
           - 1) * tan_fovx

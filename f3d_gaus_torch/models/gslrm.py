@@ -78,13 +78,13 @@ def split_dimensions(cfg: GSLRMConfig):
 
 class Linear(nn.Module):
     """x W^T + b with W drawn as N(0, std) from `generator` (no default
-    initialisation to overwrite)."""
+    initialisation to overwrite); `bias` False leaves b out."""
 
-    def __init__(self, cin, cout, std, generator=None):
+    def __init__(self, cin, cout, std, generator=None, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(
             torch.randn((cout, cin), generator=generator) * std)
-        self.bias = nn.Parameter(torch.zeros(cout))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -174,10 +174,12 @@ class GSLRM(nn.Module):
             self.head.bias.copy_(bias.repeat(p * p))
 
     @profiling.spanned("gslrm")
-    def forward(self, images, world_views, tan_fov: float):
+    def forward(self, images, world_views, tan_fov: float,
+                tan_fovy: float | None = None):
         """images (B, V, H, W, 3) RGB in [0, 1]; world_views (B, V, 4, 4)
         row-vector world->view tensors of the input cameras, tan_fov their
-        tan(fov / 2) (square pixels).
+        tan(fov / 2) (square pixels; `tan_fovy`, the y tangent, defaults
+        to it).
 
         Returns GaussianPredictor's dict: xyz (B, V·H·W, 3), opacity
         (B, V·H·W, 1), scaling (B, V·H·W, 3), rotation (B, V·H·W, 4),
@@ -190,8 +192,9 @@ class GSLRM(nn.Module):
         B, V, H, W, _ = images.shape
         p = cfg.patch
         with profiling.span("tokens"):
-            o, d, plucker = cameras.plucker_rays(world_views, tan_fov,
-                                                 tan_fov, H, W)
+            o, d, plucker = cameras.plucker_rays(
+                world_views, tan_fov,
+                tan_fov if tan_fovy is None else tan_fovy, H, W)
             x = torch.cat([images * 2.0 - 1.0, plucker], -1)
             x = self.tokenizer(patchify(x, p))
         with profiling.span("blocks"):

@@ -43,10 +43,26 @@ class PipelineConfig:
     max_per_tile: int = 1024
     chunk: int = 128               # plain-version compositing chunk
     kernel_size: float = 0.0
+    # serving frames' height (None: square frames of `resolution`)
+    height: int | None = None
 
     @property
     def tan_fov(self) -> float:
+        """tan of half the horizontal field of view `fov_deg` (the frame's
+        x tangent; the y tangent for square frames)."""
         return math.tan(self.fov_deg * math.pi / 360.0)
+
+    @property
+    def frame_height(self) -> int:
+        """The serving frames' height in pixels; their width is
+        `resolution`."""
+        return self.resolution if self.height is None else self.height
+
+    @property
+    def tan_fovy(self) -> float:
+        """The frame's y tangent: tan_fov scaled by height / width (square
+        pixels), tan_fov itself for square frames."""
+        return self.tan_fov * (self.frame_height / self.resolution)
 
     def predictor_config(self) -> PredictorConfig:
         return PredictorConfig(

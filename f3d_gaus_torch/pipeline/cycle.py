@@ -103,18 +103,19 @@ def stage_caps(gaussians, world_views, full_projs,
                cfg: PipelineConfig) -> PipelineConfig:
     """cfg with exactly the caps one render stage needs: what binning
     `gaussians` (B, P, ...) at the (V, 4, 4) world_views / full_projs at
-    cfg's size, field of view and kernel_size needs
-    (binning.footprint_need), with no headroom and no floor; pair_cap
-    rounded up to binning.suggest_pair_cap's bucket, max_per_tile to a
-    multiple of 256, so rasterize.bin_band keeps 256 lanes.  A render
+    cfg's frame size (`resolution` by `frame_height`), both tangents and
+    kernel_size needs (binning.footprint_need), with no headroom and no
+    floor; pair_cap rounded up to binning.suggest_pair_cap's bucket,
+    max_per_tile to a multiple of 256, so rasterize.bin_band keeps 256
+    lanes.  A render
     nothing truncates does not depend on its caps.  While tracing is on
     (utils.profiling) the call is span `plan_caps` and counts
     `caps.plans`."""
     wv = np.asarray(world_views, np.float32)
     fp = np.asarray(full_projs, np.float32)
-    r = cfg.resolution
-    cam = cameras.Camera(wv[0], fp[0], np.zeros(3, np.float32), r, r,
-                         cfg.tan_fov, cfg.tan_fov)
+    cam = cameras.Camera(wv[0], fp[0], np.zeros(3, np.float32),
+                         cfg.resolution, cfg.frame_height, cfg.tan_fov,
+                         cfg.tan_fovy)
     need = binning.footprint_need(gaussians["xyz"], gaussians["scaling"],
                                   gaussians["rotation"], wv, fp, cam,
                                   cfg.kernel_size)

@@ -1,12 +1,17 @@
-"""Multi-view reconstruction serving: posed input views -> GS-LRM's
-pixel-aligned Gaussians -> an orbit of renders.  No JAX counterpart.
+"""Multi-view reconstruction serving: posed input views -> a large
+reconstruction model's pixel-aligned Gaussians -> an orbit of renders.
+No JAX counterpart.
 
-`run_gslrm` predicts the Gaussians once (models/gslrm.py), then renders
-the orbit at the caps `cycle.stage_caps` plans from the set's own
-footprints at the orbit's cameras, with run_nvs_replanned's guard: should
-a planned render overflow, the caller's caps are doubled and the orbit is
-rendered again at them as static caps, at most cycle.MAX_DOUBLINGS times.
-There is no cycle stage: the input views already surround the object.
+`run_gslrm` serves either model: GS-LRM (models/gslrm.py: one object from
+a few square views) or Long-LRM (models/longlrm.py: a scene from many
+views of any frame size, its Gaussians pruned by opacity).  It predicts
+the Gaussians once, both models called with the frames' x and y tangents,
+then renders the orbit at the caps `cycle.stage_caps` plans from the
+set's own footprints at the orbit's cameras, with run_nvs_replanned's
+guard: should a planned render overflow, the caller's caps are doubled
+and the orbit is rendered again at them as static caps, at most
+cycle.MAX_DOUBLINGS times.  There is no cycle stage: the input views
+already surround the object or scene.
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ from .config import PipelineConfig
 
 
 class ReconResult(NamedTuple):
-    gaussians: dict        # (B, V·H·W, ...) pixel-aligned Gaussians
+    gaussians: dict        # (B, P, ...) pixel-aligned Gaussians (Long-LRM:
+                           # the kept ones, and `kept`)
     renders: dict          # the orbit's renders (B, F, ...)
     cfg: PipelineConfig    # the config whose caps the orbit rendered at
     attempts: int          # orbit renders tried (1 = the plan fitted)
@@ -35,11 +41,12 @@ def run_gslrm(model, cfg: PipelineConfig, images, input_cams, orbit_cams,
               timings=None, device=None, log=print) -> ReconResult:
     """One reconstruction request.
 
-    model: a GSLRM on the run's device; cfg: the render settings
-    (resolution, fov_deg, max_sh_degree 0, chunk, kernel_size) and the
-    caps to double from should the plan fail; images (B, V, H, W, 3) RGB
-    in [0, 1] seen by the input cameras `input_cams`, (B, V, 4, 4)
-    row-vector world_view matrices at cfg's field of view; orbit_cams:
+    model: a GSLRM or a LongLRM on the run's device; cfg: the render
+    settings (the frame's width `resolution` and `height`, its horizontal
+    fov_deg, max_sh_degree 0, chunk, kernel_size) and the caps to double
+    from should the plan fail; images (B, V, H, W, 3) RGB in [0, 1] seen
+    by the input cameras `input_cams`, (B, V, 4, 4) row-vector world_view
+    matrices at cfg's tangents (cfg.tan_fov, cfg.tan_fovy); orbit_cams:
     anything with `world_view`, `full_proj` (F, 4, 4) and `cam_centers`
     (F, 3) arrays.  Runs on `device` (default: the images' device, else
     cuda).  The returned `cfg` carries the orbit's planned caps, which a
@@ -56,7 +63,7 @@ def run_gslrm(model, cfg: PipelineConfig, images, input_cams, orbit_cams,
     bg = torch.zeros(3, device=dev)
     clock = profiling.StageClock(dev, timings)
 
-    gaussians = model(images, views, cfg.tan_fov)
+    gaussians = model(images, views, cfg.tan_fov, cfg.tan_fovy)
     clock.lap("predict")
     run_cfg = cycle.stage_caps(gaussians, orbit_cams.world_view,
                                orbit_cams.full_proj, cfg)

@@ -60,15 +60,17 @@ def _c2w(world_view, device) -> torch.Tensor:
 
 
 def _camera(world_view, full_proj, cam_center, cfg: PipelineConfig):
+    """A serving camera: cfg's frame width (`resolution`) and height, and
+    both its tangents."""
     return Camera(world_view, full_proj, cam_center, cfg.resolution,
-                  cfg.resolution, cfg.tan_fov, cfg.tan_fov)
+                  cfg.frame_height, cfg.tan_fov, cfg.tan_fovy)
 
 
 def camera_table(world_views, full_projs, cam_centers, cfg: PipelineConfig,
                  device) -> torch.Tensor:
     """A stage's cameras on `device`, uploaded once with no host sync: a
     (V, ROW_FLOATS) float32 table whose row v holds view v's
-    cuda_raster.camera_scalars (at cfg's size, field of view and
+    cuda_raster.camera_scalars (at cfg's frame size, tangents and
     kernel_size) in [:CAMERA_FLOATS] and its camera-to-world, row-major,
     in [C2W_OFFSET:], each bit for bit what the view's own camera gives."""
     wv = np.asarray(world_views, np.float32)
@@ -157,8 +159,8 @@ def _render(gaussians: dict, b: int, cam, row, bg, cfg: PipelineConfig):
     c2w = row[C2W_OFFSET:].view(4, 4)
     normal_world = (c2w[:3, :3] @ rn.reshape(3, -1)).reshape(rn.shape)
     dn = _depth_to_normal(c2w, out["rendered_depth"],
-                          _pixel_rays(cfg.resolution, cfg.resolution,
-                                      cfg.tan_fov, cfg.tan_fov, rn.device))
+                          _pixel_rays(cfg.resolution, cfg.frame_height,
+                                      cfg.tan_fov, cfg.tan_fovy, rn.device))
     return {
         "render": out["render"],
         "rendered_normal": normal_world,

@@ -137,6 +137,64 @@ def test_eager_stage_equals_single_renders(monkeypatch, requires_grad):
                    for t in g.values())
 
 
+def test_non_square_stage_equals_the_plain_route():
+    """A serving stage at 48 × 32 (PipelineConfig's height and its y
+    tangent) at the caps stage_caps plans for it equals, bit for bit, the
+    plain route: rasterize.render through each view's non-square camera,
+    the normals turned to the world and depth_to_normal at 48 × 32; the
+    plan fits every view and is no larger than the largest binning."""
+    from f3d_gaus_torch.ops import binning, rasterize
+    cfg = TCfg.PipelineConfig(resolution=48, height=32, fov_deg=60.0,
+                              max_sh_degree=0, pair_cap=1 << 12,
+                              max_per_tile=256, chunk=32)
+    assert cfg.frame_height == 32
+    assert cfg.tan_fovy == pytest.approx(cfg.tan_fov * 32 / 48, rel=1e-15)
+    cams = [torch_cases.frame_camera(a, 48, 32) for a in (0.2, 1.9, 4.0)]
+    assert all(c.tan_fovx == cfg.tan_fov and c.tan_fovy == cfg.tan_fovy
+               for c in cams)
+    rng = np.random.default_rng(7)
+    cloud = torch_cases.make_gaussian_cloud(rng, 400, center=(0.0, 0.0, 0.0),
+                                            spread=0.5, sh_degree=0)
+    g = {k: torch.from_numpy(cloud[i])[None] for k, i in (
+        ("xyz", 0), ("scaling", 1), ("rotation", 2), ("opacity", 3))}
+    g["features_dc"] = torch.from_numpy(cloud[4])[None]
+    g["features_rest"] = g["features_dc"][:, :, :0]
+    wv = np.stack([c.world_view for c in cams])
+    fp = np.stack([c.full_proj for c in cams])
+    cc = np.stack([c.cam_center for c in cams])
+    run = Tcycle.stage_caps(g, wv, fp, cfg)
+    bg = torch.zeros(3)
+    out = TR.render_views_batched(g, wv, fp, cc, bg, run, device="cpu")
+    assert out["render"].shape == (1, 3, 3, 32, 48)
+    assert not bool(out["overflow"].any())
+    most = 0
+    for v, cam in enumerate(cams):
+        plain = rasterize.render(
+            g["xyz"][0], g["scaling"][0], g["rotation"][0], g["opacity"][0],
+            g["features_dc"][0], cam, bg, sh_degree=0,
+            pair_cap=run.pair_cap, max_per_tile=run.max_per_tile,
+            chunk=run.chunk)
+        rn = plain["rendered_normal"]
+        rn = rn * torch.rsqrt(torch.sum(rn * rn, 0, keepdim=True) + 1e-12)
+        c2w = torch.from_numpy(np.linalg.inv(wv[v].T).astype(np.float32))
+        want = {"render": plain["render"],
+                "rendered_normal": (c2w[:3, :3] @ rn.reshape(3, -1)
+                                    ).reshape(rn.shape),
+                "rendered_depth": plain["rendered_depth"],
+                "depth_normal": TR.depth_to_normal(
+                    wv[v], plain["rendered_depth"], 48, 32, cam.tan_fovx,
+                    cam.tan_fovy),
+                "rendered_alpha": plain["rendered_alpha"],
+                "distortion_map": plain["distortion_map"]}
+        for k, t in want.items():
+            assert torch.equal(out[k][0, v], t), (k, v)
+        pre = rasterize.prepare(
+            g["xyz"][0], g["scaling"][0], g["rotation"][0], g["opacity"][0],
+            g["features_dc"][0], cam, bg, sh_degree=0, pair_cap=1 << 14)
+        most = max(most, int(pre.binning.num_pairs))
+    assert most > 0 and run.pair_cap == binning.suggest_pair_cap(most)
+
+
 def test_pixel_rays_are_built_once_a_size():
     """depth_to_normal's pixel rays are built once a size and field of
     view and kept, and depth_to_normal gives the rays it always gave."""

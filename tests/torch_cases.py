@@ -394,3 +394,18 @@ def preprocess_cases(seed=0):
             ("gslrm_1048576", turntable_camera(0.7), lrm, 0, 0.0),
             ("edges_sh3", cam, tuple(edges), 3, 0.3),
             ("edges_sh2_k0", cam, tuple(edges), 2, 0.0)]
+
+
+def frame_camera(azimuth, width, height, fov_x_deg=60.0, elevation=25.0,
+                 radius=3.0, znear=0.01, zfar=100.0):
+    """A turntable_views camera with a frame of width × height and a
+    horizontal field of view of fov_x_deg (square pixels), as a
+    core.cameras.Camera: Long-LRM's scene views."""
+    wv = turntable_views([azimuth], elevation, radius)[0].astype(np.float32)
+    tan_x = float(np.tan(np.radians(fov_x_deg) / 2))
+    tan_y = tan_x * height / width
+    proj = cameras.projection_matrix(znear, zfar, 2 * np.arctan(tan_x),
+                                     2 * np.arctan(tan_y)).T
+    full_proj = (wv @ proj).astype(np.float32)
+    center = np.linalg.inv(wv.astype(np.float64))[3, :3].astype(np.float32)
+    return cameras.Camera(wv, full_proj, center, width, height, tan_x, tan_y)
