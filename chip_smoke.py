@@ -7,8 +7,8 @@
 Phases, one JSON line each:
   1. environment: torch, CUDA, nvcc, the card; builds the decision pass
      csrc/gof_decide.cu, csrc/raster_fwd.cu, csrc/raster_bwd.cu (all
-     including csrc/gof_pair.cuh), csrc/integrate.cu and
-     csrc/preprocess.cu anew for sm_90a
+     including csrc/gof_pair.cuh), csrc/integrate.cu, csrc/preprocess.cu
+     and csrc/footprint.cu (both including csrc/screen.cuh) anew for sm_90a
      (one nvcc each, in parallel) and prints ptxas's register/shared-memory
      lines;
   2. decide_vs_plain: the decision pass's mask against its plain version
@@ -55,12 +55,20 @@ Phases, one JSON line each:
      and the binning; at the three shapes its device time a launch, cold
      (L2 flushed) and warm, beside the composed route's device, host and
      CUDA-event times and the byte bound;
+     footprint_vs_plain: the stage cap planner's kernel csrc/footprint.cu
+     against its plain version (binning._footprint_need_impl) at the
+     serving orbit's and aggregation's shapes: the two counts equal; the
+     kernel's device time a launch with the L2 flushed, the whole call's
+     device and CUDA-event times, beside the plain version's CUDA-event
+     and device times and the bound;
   3. main_path (serving): cycle.run_nvs_replanned at PipelineConfig() width
      (256^2, base_dim 128, 8 aggregation views, 128+1 NVS views) with
      random EDM weights from a seeded torch.Generator on a numpy-made RGB-D
      input; checks shapes, finiteness, no overflow, and that every render
      went through K1 and the preprocess kernel (launch count == (8 + 129)
-     per attempt, as many decision passes and preprocess launches, no K2);
+     per attempt, as many decision passes and preprocess launches, no K2)
+     and each stage's plan through the footprint kernel (2 a request:
+     only the first attempt plans, a doubling reruns at static caps);
   4. kernel_timing: K1 with CUDA events at the serving path's two shapes
      (aggregation render, P = 65,536; NVS render, P = 589,824), whole and
      each pass alone (decide_ms, composite_ms), beside the plain version
@@ -87,7 +95,8 @@ Phases, one JSON line each:
      to 1.0 (at the init no point reaches alpha 0.5 and the mesh is
      empty); requires a mesh_binary_search.ply with faces that reads
      back, no truncated field view, 129 x (1 + 8) field-query launches
-     and (8 + 129) K1 and preprocess launches per attempt; reports extract_mesh's stage
+     and (8 + 129) K1 and preprocess launches per attempt, 2 footprint
+     launches (its request's two planned stages); reports extract_mesh's stage
      seconds and counts, the CLI's wall time and peak memory;
   6. integrate_timing: the field query at that run's first-forward
      Gaussians, seed points, frontal NVS camera and caps: kernel and
@@ -209,6 +218,14 @@ OPS_PER_CONTRIB_BWD = 181
 TIMED_LAUNCHES = 20        # kernel launches per CUDA-event timing
 PREPROCESS_TURNS = 2       # (plain, kernel, kernel, plain) timing turns
 L2_FLUSH_BYTES = 256 << 20   # written before each cold launch: 5x the L2
+# csrc/footprint.cu's f32 operations: a (Gaussian, view) footprint (the
+# projection 40, the EWA covariance 84, the extent 15, validity 2, the pixel
+# mean 8, the tile rectangle and its count 29) and, once a Gaussian, its
+# rotation (30) and 3D covariance (42)
+OPS_PER_FOOTPRINT = 178
+OPS_PER_PLANNED_GAUSSIAN = 72
+PLAN_BYTES_PER_GAUSSIAN = 40   # xyz, scaling, rotation, read once
+PLAIN_PLAN_CALLS = 3           # plain version's calls a timing (~0.3 s each)
 # gradient tolerance, x max |g| per column: the JAX package's own
 # (tests/test_pallas_raster.py:51-53); K2's atomics reorder the sums
 GRAD_TOL = 5e-3
@@ -1298,13 +1315,21 @@ def prepared(g, cam, cfg, b=0, tile_rows=None):
 
 
 def launch_counts():
-    """(K1, K2, decision pass, field query, preprocess) launches counted
-    since the program's profiling.record() began (its `launches.*`
+    """(K1, K2, decision pass, field query, preprocess, footprint) launches
+    counted since the program's profiling.record() began (its `launches.*`
     counters)."""
     from f3d_gaus_torch.utils import profiling
     c = profiling.snapshot()["counters"]
     return tuple(c.get(f"launches.{k}", 0)
-                 for k in ("fwd", "bwd", "decide", "integrate", "preprocess"))
+                 for k in ("fwd", "bwd", "decide", "integrate", "preprocess",
+                           "footprint"))
+
+
+def camera_sizes(cams):
+    """The camera groups per_scene.needed_caps plans one footprint launch
+    each for: the distinct sizes and fields of view of a scene's cameras."""
+    return len({(c.camera.width, c.camera.height, c.camera.tan_fovx,
+                 c.camera.tan_fovy) for c in cams})
 
 
 def graph_counts():
@@ -1787,6 +1812,99 @@ def preprocess_vs_plain(dev):
     return shapes
 
 
+def footprint_vs_plain(dev):
+    """Phase footprint_vs_plain: the stage cap planner's kernel (cuda_raster.
+    footprint_need: csrc/footprint.cu and its reduction) against its plain
+    version (binning._footprint_need_impl, the chunked composition it
+    replaces) on card tensors at the serving stages' shapes: the orbit's
+    129 views of a 589,824-Gaussian set and the aggregation's 8 views of
+    65,536 (tests/torch_cases.bench_scene clouds), 256^2.  The two counts
+    equal, one counted launch a call.  In PREPROCESS_TURNS turns of
+    (plain, kernel, kernel, plain): the footprint kernel's device time a
+    launch with the L2 flushed before each (cold_ms, the one held to the
+    bound); the whole call's device time, back to back (call_device_ms:
+    the table's upload, the zeroing, both kernels, the read) and its
+    CUDA-event time a call (call_ms, which the host read ends); the plain
+    version's CUDA-event time a call (plain_ms: its host sets it), its
+    device time and kernels a call.  The bound: OPS_PER_FOOTPRINT a
+    footprint and OPS_PER_PLANNED_GAUSSIAN a Gaussian at the FP32 peak, or
+    PLAN_BYTES_PER_GAUSSIAN read once at the memory rate.  Returns {shape:
+    fields}."""
+    import collections
+    import numpy as np
+    import torch
+    from f3d_gaus_torch.ops import binning as B
+    from f3d_gaus_torch.pipeline import config as C
+    from f3d_gaus_torch.pipeline import cycle
+    from f3d_gaus_torch.pipeline import dataset as D
+    from f3d_gaus_torch.utils import profiling
+    import torch_cases
+
+    cfg = C.PipelineConfig()
+    inv = D.canonical_cameras(cfg).inverse_first_camera
+    r = cfg.resolution
+    rng = np.random.default_rng(0)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    shapes = {}
+    for name, cs, n in (("orbit_589824", cycle.nvs_cameras(cfg, inv),
+                         9 * 65536),
+                        ("aggregation_65536",
+                         cycle.aggregation_cameras(cfg, inv), 65536)):
+        _, cloud = torch_cases.bench_scene(rng, n=n)
+        g = [torch.from_numpy(a).to(dev)[None] for a in cloud[:3]]
+        cam = cs.camera(0, r, r, cfg.tan_fov, cfg.tan_fov)
+        wv, fp = cs.world_view, cs.full_proj
+
+        def kernel():
+            return B.footprint_need(*g, wv, fp, cam, cfg.kernel_size)
+
+        def plain():
+            return B._footprint_need_impl(*g, wv, fp, cam, cfg.kernel_size)
+        with profiling.record():
+            got = kernel()
+            launches = profiling.snapshot()["counters"].get(
+                "launches.footprint", 0)
+        want = plain()
+        require(launches == 1, f"{launches} footprint launches for one call")
+        require(got == want, {name: {"kernel": got, "plain": want}})
+        turns = collections.defaultdict(list)
+        for _ in range(PREPROCESS_TURNS):
+            for side in ("plain", "kernel", "kernel", "plain"):
+                if side == "kernel":
+                    turns["cold_ms"].append(kernel_device_ms(
+                        kernel, TIMED_LAUNCHES, "footprint_kernel", flush)[0])
+                    turns["sum_ms"].append(kernel_device_ms(
+                        kernel, TIMED_LAUNCHES, "occupancy_kernel")[0])
+                    ms, kernels = kernel_device_ms(kernel, TIMED_LAUNCHES,
+                                                   None)
+                    turns["call_device_ms"].append(ms)
+                    turns["call_kernels"].append(kernels)
+                    turns["call_ms"].append(time_ms(kernel, TIMED_LAUNCHES))
+                else:
+                    ms, kernels = kernel_device_ms(plain, PLAIN_PLAN_CALLS,
+                                                   None)
+                    turns["plain_device_ms"].append(ms)
+                    turns["plain_kernels"].append(kernels)
+                    turns["plain_ms"].append(time_ms(plain, PLAIN_PLAN_CALLS,
+                                                     warmup=1))
+        views = len(wv)
+        res = {"P": n, "views": views, "footprints": n * views, **got,
+               **{k: v for k, v in turns.items()},
+               "ms": statistics.median(turns["cold_ms"]),
+               "call_ms_median": statistics.median(turns["call_ms"]),
+               "plain_ms_median": statistics.median(turns["plain_ms"]),
+               **bound(n * views * OPS_PER_FOOTPRINT
+                       + n * OPS_PER_PLANNED_GAUSSIAN,
+                       n * PLAN_BYTES_PER_GAUSSIAN)}
+        require(res["ms"] > 0, f"{name}: the profiler saw no "
+                "footprint_kernel on the device")
+        res["bound_share"] = res["bound_ms"] / res["ms"]
+        shapes[name] = res
+        del g
+        torch.cuda.empty_cache()
+    return shapes
+
+
 def serving_path(args, dev, card):
     """Phases 3 and 4: run_nvs_replanned at full width, its launches
     counted inside profiling.record(), then K1's timing at its shapes."""
@@ -1818,8 +1936,8 @@ def serving_path(args, dev, card):
                                       timings=timings)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches, launches_bwd, launches_decide, _, launches_pre = \
-            launch_counts()
+        launches, launches_bwd, launches_decide, _, launches_pre, \
+            footprints = launch_counts()
         captures, replays = graph_counts()
     peak = torch.cuda.max_memory_allocated()
 
@@ -1846,6 +1964,10 @@ def serving_path(args, dev, card):
             and replays == (n_agg + n_nvs - 2) * res.attempts,
             f"{captures} graphs captured, {replays} replays for "
             f"{res.attempts} attempts")
+    # only the first attempt plans (its two stages); a doubling reruns at
+    # static caps
+    require(footprints == 2,
+            f"{footprints} footprint launches for {res.attempts} attempts")
     emit("main_path", card=card, config="PipelineConfig()",
          num_nvs_views=cfg.num_nvs_views, params=n_params,
          attempts=res.attempts, replans=replans,
@@ -1853,7 +1975,8 @@ def serving_path(args, dev, card):
                "max_per_tile": res.cfg.max_per_tile},
          kernel_launches=launches, decide_launches=launches_decide,
          preprocess_launches=launches_pre, graph_captures=captures,
-         graph_replays=replays, wall_s=wall_s,
+         graph_replays=replays, footprint_launches=footprints,
+         wall_s=wall_s,
          stage_s_last_attempt=timings, peak_allocated_bytes=peak,
          merged_points=int(res.merged["xyz"].shape[1]))
 
@@ -1889,7 +2012,7 @@ def serving_path(args, dev, card):
     emit("band_vs_plain", card=card, tol=BAND_TOL_TEXT.format(
         held=f"K1 the anchor, K2 held_bwd on >= {NVS_ROWS} of rows (the "
              "full frame too)"), **bands)
-    return ((launches, launches_decide, launches_pre), shapes,
+    return ((launches, launches_decide, launches_pre, footprints), shapes,
             (n_nvs, n_agg + n_nvs), bands)
 
 
@@ -2234,10 +2357,13 @@ def training_path(args, dev, card):
                           **{f"{k}_s": v for k, v in timings.items()}})
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t_start
-        launches, pre_launches = launch_counts()[:3], launch_counts()[4]
+        n = launch_counts()
+        launches, pre_launches, plan_launches = n[:3], n[4], n[5]
     peak = torch.cuda.max_memory_allocated()
     require(pre_launches == 0, f"{pre_launches} preprocess kernel launches "
             "in training, whose every render is differentiated")
+    require(plan_launches == 0, f"{plan_launches} footprint kernel launches "
+            "in training, which plans no caps")
     require(launches == (3 * B * (len(steps) + len(attempts)),
                          3 * B * len(steps),
                          3 * B * (2 * len(steps) + len(attempts))),
@@ -2328,7 +2454,7 @@ def training_path(args, dev, card):
         given.append(compare_given_mask(inp, args.seed + 1, TRAIN_ROWS))
         emit("given_mask_vs_plain", case=f"train_{k}_image1",
              tol=GIVEN_MASK_TOL_TEXT, **given[-1])
-    return launches, shapes, B, masks, given
+    return (*launches, plan_launches), shapes, B, masks, given
 
 
 def sharded_grads(fn, cloud, w9):
@@ -2645,8 +2771,9 @@ def mesh_path(args, dev, card):
     integrate's overflow count set to 0 just before it.  Requires a
     non-empty mesh that reads back, no truncated view, 129 x (1 + 8)
     field-query launches, one K1, decision pass and preprocess launch a
-    render, and two CUDA graphs captured an attempt (the aggregation and
-    orbit stages), replayed for every other view."""
+    render, two footprint launches (the request's two planned stages), and
+    two CUDA graphs captured an attempt (the aggregation and orbit
+    stages), replayed for every other view."""
     import contextlib
     import io
     import shutil
@@ -2683,7 +2810,7 @@ def mesh_path(args, dev, card):
         n = launch_counts()
         captures, replays = graph_counts()
     launches = {"integrate": n[3], "raster_fwd": n[0], "gof_decide": n[2],
-                "raster_bwd": n[1], "preprocess": n[4]}
+                "raster_bwd": n[1], "preprocess": n[4], "footprint": n[5]}
     overflow_views = TI.overflow_views
     peak = torch.cuda.max_memory_allocated()
     lines = log.getvalue().splitlines()
@@ -2702,7 +2829,8 @@ def mesh_path(args, dev, card):
     require(launches["integrate"] == n_views * (1 + MESH_STEPS)
             and launches["raster_fwd"] == launches["gof_decide"]
             == launches["preprocess"] == n_renders
-            and launches["raster_bwd"] == 0, launches)
+            and launches["raster_bwd"] == 0
+            and launches["footprint"] == 2, launches)
     require(captures == 2 * stats["attempts"]
             and replays == n_renders - captures,
             f"{captures} graphs captured, {replays} replays for "
@@ -3314,7 +3442,8 @@ def scene_path(args, dev, card):
                                lpips_weights=vgg_pt, device=dev)
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
-            launches = launch_counts()[:3]
+            n = launch_counts()
+            launches, plan_launches = n[:3], n[5]
     finally:
         PS.fit_scene = fit
     peak = torch.cuda.max_memory_allocated()
@@ -3423,9 +3552,16 @@ def scene_path(args, dev, card):
          final_gaussians=summary["final_gaussians"],
          peak_allocated_bytes=peak,
          launches={"raster_fwd": launches[0], "raster_bwd": launches[1],
-                   "gof_decide": launches[2]})
+                   "gof_decide": launches[2], "footprint": plan_launches})
     require(launches == (n_it + n_test, n_it, 2 * n_it + n_test),
             f"per-scene launches K1 / K2 / decision {launches}")
+    # needed_caps launches once a camera size: at each of the fit's plans
+    # over the training cameras, and once for the test renders
+    plans = (len(hist["caps"]) * camera_sizes(train_cams)
+             + camera_sizes(test_cams))
+    require(plan_launches == plans, f"{plan_launches} footprint launches "
+            f"for {len(hist['caps'])} fit plans and the test renders' "
+            f"({plans} camera groups)")
     require(hist["overflow_steps"] == 0 and summary["overflow_steps"] == 0,
             f"{hist['overflow_steps']} steps truncated by the caps "
             f"{hist['caps']}")
@@ -3472,7 +3608,7 @@ def scene_path(args, dev, card):
              f"anchor against f64, its share of values above {ANCHOR_ABOVE} "
              f"over all bands; the bands' summed K2 >= {TRAIN_ROWS} of rows "
              "within tolerance of their summed f64 gradients)"), **bands)
-    return launches, fwd, bwd, bands
+    return (*launches, plan_launches), fwd, bwd, bands
 
 
 
@@ -3502,20 +3638,24 @@ def main(argv=None) -> int:
     for name, res in pre_shapes.items():
         emit("preprocess_vs_plain", card=card, case=name,
              tol="equal bit for bit, and the binning", **res)
-    (serve_k1, serve_decide, serve_pre), fwd_shapes, (n_nvs, n_render), \
-        nvs_bands = serving_path(args, dev, card)
+    plan_shapes = footprint_vs_plain(dev)
+    for name, res in plan_shapes.items():
+        emit("footprint_vs_plain", card=card, case=name,
+             tol="the two counts equal", **res)
+    (serve_k1, serve_decide, serve_pre, serve_plan), fwd_shapes, \
+        (n_nvs, n_render), nvs_bands = serving_path(args, dev, card)
     masks += [v["mask"] for v in fwd_shapes.values()]
     mesh = mesh_path(args, dev, card)
     field = integrate_timing(mesh, args, dev, card)
     emit("integrate_timing", card=card, view="frontal NVS camera", **field)
     mesh_k1 = mesh["launches"]["raster_fwd"]
-    (train_k1, train_k2, train_decide), bwd_shapes, B, train_masks, \
-        train_given = training_path(args, dev, card)
+    (train_k1, train_k2, train_decide, train_plan), bwd_shapes, B, \
+        train_masks, train_given = training_path(args, dev, card)
     masks += train_masks
     given += train_given
     sharded = sharded_path(args, dev, card)
-    (scene_k1, scene_k2, scene_decide), scene_fwd, scene_bwd, scene_bands = \
-        scene_path(args, dev, card)
+    (scene_k1, scene_k2, scene_decide, scene_plan), scene_fwd, scene_bwd, \
+        scene_bands = scene_path(args, dev, card)
     masks += [scene_fwd["mask"], scene_bwd["mask"]]
     bands = {"nvs": nvs_bands, "per_scene": scene_bands}
     masks += [b["mask"] for x in bands.values() for b in x["bands"]]
@@ -3527,6 +3667,7 @@ def main(argv=None) -> int:
 
     nvs, cano = fwd_shapes["nvs"], bwd_shapes["canonical"]
     pre = pre_shapes["orbit_589824"]
+    plan = plan_shapes["orbit_589824"]
     given_note = (f"; given the decision pass's mask, on {len(given)} inputs "
                   "(flagship, 4 training renders; the per-scene render is "
                   "held against the plain version in f64, phase "
@@ -3699,6 +3840,36 @@ def main(argv=None) -> int:
                 "host_ms": statistics.median(v["host_ms"]),
                 "plain_host_ms": statistics.median(v["plain_host_ms"])}
             for k, v in pre_shapes.items() if "ms" in v},
+    }, {
+        "name": "footprint", "route": "cuda",
+        "source": csrc + "footprint.cu",
+        "sources": [csrc + f for f in ("footprint.cu", "screen.cuh")],
+        "replaces": "no TPU kernel: the JAX package's caps are static; the "
+                    "port's plain planner binning._footprint_need_impl",
+        "launches": (serve_plan + train_plan + mesh["launches"]["footprint"]
+                     + scene_plan),
+        "launches_by_path": {"serving": serve_plan, "training": train_plan,
+                             "mesh": mesh["launches"]["footprint"],
+                             "per_scene": scene_plan},
+        "max_abs_err": 0,
+        "ms": plan["ms"], "plain_ms": plan["plain_ms_median"],
+        "bound_ms": plan["bound_ms"], "bound_by": plan["bound_by"],
+        "library_ms": None,
+        "at": f"the orbit stage's plan, {plan['views']} views of "
+              f"P={plan['P']} (2 launches a serving request, 1 a recon "
+              "request); ms is the footprint kernel's device time a launch "
+              "with the L2 flushed before it; call_ms the wrapper's "
+              "CUDA-event time a call, its host read included; plain_ms the "
+              "plain version's CUDA-event time a call, which its host sets; "
+              "max_abs_err 0: the counts are integers and equal",
+        "shapes": {k: {f: v[f] for f in (
+            "P", "views", "ms", "call_ms_median", "plain_ms_median",
+            "bound_ms", "bound_share")} | {
+                "sum_ms": statistics.median(v["sum_ms"]),
+                "call_device_ms": statistics.median(v["call_device_ms"]),
+                "plain_device_ms": statistics.median(v["plain_device_ms"]),
+                "plain_kernels": statistics.median(v["plain_kernels"])}
+            for k, v in plan_shapes.items()},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

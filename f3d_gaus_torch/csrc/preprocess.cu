@@ -29,15 +29,15 @@
 // explicit rounding intrinsics, so that nvcc contracts nothing into an FMA
 // and the results equal the composed route's bit for bit (the binning
 // sorts and counts from depths, means2d and radii, which must not move).
-// Each comment names the expression it mirrors.  The camera's constants
-// are f32 values rounded where PyTorch rounds them
-// (cuda_raster.camera_scalars), read from device memory: each block stages
-// the kCameraFloats of the row into shared memory before its Gaussians,
-// so a CUDA graph that captured the launch reads whatever camera was
-// copied into the row before its replay (pipeline/renderer.py's stage
-// table).  The literals below are written as double constants cast to
-// float, the rounding PyTorch applies to a Python float.
-// torch.maximum / minimum propagate NaN, so max_of / min_of do too.
+// The projection, covariances, radius and pixel mean are screen.cuh's,
+// which the stage cap planner (footprint.cu) shares, so the planner counts
+// exactly the footprints this kernel gives.  Each comment names the
+// expression it mirrors.  The camera's constants are f32 values rounded
+// where PyTorch rounds them (cuda_raster.camera_scalars), read from device
+// memory: each block stages the kCameraFloats of the row into shared
+// memory before its Gaussians, so a CUDA graph that captured the launch
+// reads whatever camera was copied into the row before its replay
+// (pipeline/renderer.py's stage table).
 //
 // What bounds it on this card: bytes.  At SH degree 1 a Gaussian reads 92
 // bytes and writes 104 (table 76, conic | means2d 20, depth and radius),
@@ -50,26 +50,15 @@
 
 #include <cuda_runtime.h>
 
+#include "screen.cuh"
+
 namespace {
+
+using namespace screen;
 
 constexpr int kThreads = 128;
 constexpr int kNFeat = 19;     // rasterize.NFEAT
 constexpr int kExtra = 5;      // conic (3) | means2d (2)
-
-// cuda_raster.camera_scalars packs these, in this order
-struct Camera {
-  float wv[16];            // world_view, row-major (row-vector layout)
-  float fp[16];            // full_proj, row-major
-  float campos[3];         // camera centre
-  float focal_x, focal_y;
-  float lim_x, lim_y;      // 1.3 tan_fov
-  float kernel_size;
-  float scale_modifier;
-  float width, height;
-};
-constexpr int kCameraFloats = 43;
-static_assert(sizeof(Camera) == kCameraFloats * sizeof(float),
-              "Camera must be packed floats");
 
 struct Params {
   const float* means;      // (P, 3)
@@ -86,14 +75,8 @@ struct Params {
   int* radii;              // (P,)
 };
 
-// The composed route's constants (core/gaussians.py, core/sh.py), each the
-// f32 nearest to the Python float.
+// The SH constants (core/sh.py), each the f32 nearest to the Python float.
 #define F32(x) static_cast<float>(x)
-constexpr float kNear = F32(0.2);
-constexpr float kWEps = F32(1e-7);   // w's and 1 / sqrt(s^2 + eps)'s
-constexpr float kTzMin = F32(1e-4);
-constexpr float kDetMin = F32(1e-6);
-constexpr float kLambdaMin = F32(0.1);
 constexpr float kNormEps = F32(1e-16);
 constexpr float kC0 = F32(0.28209479177387814);
 constexpr float kC1 = F32(0.4886025119029199);
@@ -105,41 +88,6 @@ __constant__ float kC3[7] = {
     F32(0.3731763325901154), F32(-0.4570457994644658), F32(1.445305721320277),
     F32(-0.5900435899266435)};
 #undef F32
-
-__device__ __forceinline__ float mul(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ float add(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ float sub(float a, float b) {
-  return __fsub_rn(a, b);
-}
-__device__ __forceinline__ float dvd(float a, float b) {
-  return __fdiv_rn(a, b);
-}
-
-// torch.maximum / torch.minimum against a constant: NaN stays NaN
-__device__ __forceinline__ float max_of(float x, float lo) {
-  return x != x ? x : fmaxf(x, lo);
-}
-__device__ __forceinline__ float min_of(float x, float hi) {
-  return x != x ? x : fminf(x, hi);
-}
-
-// x m[0][j] + y m[1][j] + z m[2][j] + m[3][j] (project_points' col, the t of
-// _gaussian_to_view and cov2d_and_coef)
-__device__ __forceinline__ float col(const float* m, float x, float y,
-                                     float z, int j) {
-  return add(add(add(mul(x, m[j]), mul(y, m[4 + j])), mul(z, m[8 + j])),
-             m[12 + j]);
-}
-
-// r0 . r0-style sums of three products, left to right
-__device__ __forceinline__ float dot3(float a0, float b0, float a1, float b1,
-                                     float a2, float b2) {
-  return add(add(mul(a0, b0), mul(a1, b1)), mul(a2, b2));
-}
 
 // rasterize._quadform6: (xx, 2xy, yy, 2xz, 2yz, zz) of d^T (G^T G) d, G's
 // rows r0, r1, r2
@@ -194,89 +142,34 @@ preprocess_kernel(Params p, const float* __restrict__ camera) {
                 qy = p.quats[4 * i + 2], qz = p.quats[4 * i + 3];
     const float opacity = p.opacity[i];
 
-    // project_points: p_view, then p_ndc = col(fp, j) * 1 / (w + 1e-7)
-    const float pv0 = col(c.wv, m0, m1, m2, 0);
-    const float pv1 = col(c.wv, m0, m1, m2, 1);
-    const float pv2 = col(c.wv, m0, m1, m2, 2);
-    const float p_w = __frcp_rn(add(col(c.fp, m0, m1, m2, 3), kWEps));
-    const float ndc0 = mul(col(c.fp, m0, m1, m2, 0), p_w);
-    const float ndc1 = mul(col(c.fp, m0, m1, m2, 1), p_w);
+    // the footprint (screen.cuh): projection, build_cov3d, the EWA
+    // covariance, screen_extent and ndc_to_pix
+    const Projected pj = project(c, m0, m1, m2);
+    const float pv0 = pj.pv[0], pv1 = pj.pv[1], pv2 = pj.pv[2];
     const bool in_front = pv2 > kNear;
+    float R[9], cov[6];
+    rotmat(qr, qx, qy, qz, R);
+    cov3d(R, s0, s1, s2, c.scale_modifier, cov);
+    const Cov2d cv = cov2d(c, pj.pv, cov);
+    const Extent ex = extent(cv, c.kernel_size);
 
-    // _rotmat_comps
-    const float xx = mul(qx, qx), yy = mul(qy, qy), zz = mul(qz, qz);
-    const float xy = mul(qx, qy), xz = mul(qx, qz), yz = mul(qy, qz);
-    const float rx = mul(qr, qx), ry = mul(qr, qy), rz = mul(qr, qz);
-    const float R[9] = {
-        sub(1.0f, mul(2.0f, add(yy, zz))), mul(2.0f, sub(xy, rz)),
-        mul(2.0f, add(xz, ry)),
-        mul(2.0f, add(xy, rz)), sub(1.0f, mul(2.0f, add(xx, zz))),
-        mul(2.0f, sub(yz, rx)),
-        mul(2.0f, sub(xz, ry)), mul(2.0f, add(yz, rx)),
-        sub(1.0f, mul(2.0f, add(xx, yy)))};
-
-    // build_cov3d: m = R diag(s * scale_modifier), cov = m m^T
-    const float sm[3] = {mul(s0, c.scale_modifier), mul(s1, c.scale_modifier),
-                         mul(s2, c.scale_modifier)};
-    float mm[9];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) mm[k] = mul(R[k], sm[k % 3]);
-    auto cdot = [&](int a, int b) {
-      return dot3(mm[3 * a], mm[3 * b], mm[3 * a + 1], mm[3 * b + 1],
-                  mm[3 * a + 2], mm[3 * b + 2]);
-    };
-    const float V[3][3] = {{cdot(0, 0), cdot(0, 1), cdot(0, 2)},
-                           {cdot(0, 1), cdot(1, 1), cdot(1, 2)},
-                           {cdot(0, 2), cdot(1, 2), cdot(2, 2)}};
-
-    // cov2d_and_coef
-    const float tz = max_of(pv2, kTzMin);
-    const float tx = mul(min_of(max_of(dvd(pv0, tz), -c.lim_x), c.lim_x), tz);
-    const float ty = mul(min_of(max_of(dvd(pv1, tz), -c.lim_y), c.lim_y), tz);
-    const float tz2 = mul(tz, tz);
-    const float j00 = dvd(c.focal_x, tz);
-    const float j02 = dvd(-mul(tx, c.focal_x), tz2);
-    const float j11 = dvd(c.focal_y, tz);
-    const float j12 = dvd(-mul(ty, c.focal_y), tz2);
-    float r0[3], r1[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {   // Wc[i][k] = wv[k][i]
-      r0[k] = add(mul(j00, c.wv[4 * k]), mul(j02, c.wv[4 * k + 2]));
-      r1[k] = add(mul(j11, c.wv[4 * k + 1]), mul(j12, c.wv[4 * k + 2]));
-    }
-    // quad(a, b): 0.0 + a0 vb0, then + a1 vb1, + a2 vb2
-    auto quad = [&](const float* a, const float* b) {
-      float out = 0.0f;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float vb = dot3(V[k][0], b[0], V[k][1], b[1], V[k][2], b[2]);
-        out = add(out, mul(a[k], vb));
-      }
-      return out;
-    };
-    const float cxx = quad(r0, r0), cxy = quad(r0, r1), cyy = quad(r1, r1);
-    const float det0 = max_of(sub(mul(cxx, cyy), mul(cxy, cxy)), kDetMin);
-    const float cxk = add(cxx, c.kernel_size), cyk = add(cyy, c.kernel_size);
-    const float cxy2 = mul(cxy, cxy);
-    const float det1 = max_of(sub(mul(cxk, cyk), cxy2), kDetMin);
+    // cov2d_and_coef's low-pass coefficient
+    const float det0 =
+        max_of(sub(mul(cv.xx, cv.yy), mul(cv.xy, cv.xy)), kDetMin);
+    const float det1 = max_of(sub(mul(ex.xk, ex.yk), ex.xy2), kDetMin);
     float coef = __fsqrt_rn(add(dvd(det0, add(det1, kDetMin)), kDetMin));
     if (det0 <= kDetMin || det1 <= kDetMin) coef = 0.0f;
 
-    // screen_extent on (cxx + k, cxy, cyy + k)
-    const float det = sub(mul(cxk, cyk), cxy2);
+    // screen_extent's conic
+    const float det = ex.det;
     const float det_inv = det == 0.0f ? 0.0f : __frcp_rn(det);
-    const float conic0 = mul(cyk, det_inv);
-    const float conic1 = mul(-cxy, det_inv);
-    const float conic2 = mul(cxk, det_inv);
-    const float mid = mul(0.5f, add(cxk, cyk));
-    const float lambda1 =
-        add(mid, __fsqrt_rn(max_of(sub(mul(mid, mid), det), kLambdaMin)));
-    const float radius = ceilf(mul(3.0f, __fsqrt_rn(lambda1)));
+    const float conic0 = mul(ex.yk, det_inv);
+    const float conic1 = mul(-cv.xy, det_inv);
+    const float conic2 = mul(ex.xk, det_inv);
+    const float radius = ex.radius;
     const bool valid = in_front && det != 0.0f;
-
-    // ndc_to_pix: ((v + 1) S - 1) / 2
-    const float mx = mul(sub(mul(add(ndc0, 1.0f), c.width), 1.0f), 0.5f);
-    const float my = mul(sub(mul(add(ndc1, 1.0f), c.height), 1.0f), 0.5f);
+    const float mx = ndc_to_pix(pj.ndc0, c.width);
+    const float my = ndc_to_pix(pj.ndc1, c.height);
 
     // sh_color_from_gaussians: dirs = (mean - campos) / sqrt(|d|^2 + eps),
     // |d|^2 summed left to right as core/sh.py writes it out

@@ -26,6 +26,7 @@ import torch
 
 from ..core import gaussians as G
 from ..utils import profiling
+from . import cuda_raster
 
 BLOCK = 16
 ALIGN = 128           # default slab alignment
@@ -185,7 +186,7 @@ def tile_occupancy(means2d, radii, width: int, height: int) -> torch.Tensor:
     return occ[..., :grid_y, :grid_x].reshape(*lead, -1).to(torch.int32)
 
 
-PLAN_CHUNK = 1 << 22      # (view, Gaussian) footprints per planning step
+PLAN_CHUNK = 1 << 22      # (view, Gaussian) footprints per plain planning step
 
 
 @torch.no_grad()
@@ -194,10 +195,29 @@ def footprint_need(xyz, scaling, rotation, world_views, full_projs, camera,
     """What binning (B, P) Gaussians at the (V, 4, 4) world_views /
     full_projs needs, exactly: {'pairs': the most (Gaussian, tile) pairs
     of any (batch element, view), 'tile': the fullest tile's Gaussians of
-    any}; `camera` gives the size and field of view all V share.  Built
-    from the footprints preprocess gives (gaussians.screen_footprints, bit
-    for bit, PLAN_CHUNK at a time), their pair counts (tile_rects) and
-    tile occupancy (tile_occupancy); no binning, one host read."""
+    any}; `camera` gives the size and field of view all V share.  Counted
+    from the footprints preprocess gives, with no binning and one host
+    read: for CUDA tensors in one launch of csrc/footprint.cu and its
+    reduction (cuda_raster.footprint_need, counted as
+    `launches.footprint`), for CPU tensors by the plain version
+    _footprint_need_impl."""
+    if xyz.is_cuda:
+        return cuda_raster.footprint_need(
+            xyz.contiguous(), scaling.contiguous(), rotation.contiguous(),
+            world_views, full_projs, camera, kernel_size,
+            (camera.width + BLOCK - 1) // BLOCK,
+            (camera.height + BLOCK - 1) // BLOCK)
+    return _footprint_need_impl(xyz, scaling, rotation, world_views,
+                                full_projs, camera, kernel_size)
+
+
+@torch.no_grad()
+def _footprint_need_impl(xyz, scaling, rotation, world_views, full_projs,
+                         camera, kernel_size: float = 0.0) -> dict:
+    """footprint_need's plain version, on any device: the footprints
+    preprocess gives (gaussians.screen_footprints, bit for bit, PLAN_CHUNK
+    at a time), their pair counts (tile_rects) and tile occupancy
+    (tile_occupancy)."""
     w, h = camera.width, camera.height
     step = max(1, PLAN_CHUNK // max(xyz.shape[1], 1))
     pairs, tiles = [], []

@@ -4,7 +4,9 @@ which all include csrc/gof_pair.cuh (counterpart of
 f3d_gaus_tpu/ops/pallas_raster.py), of the opacity-field query
 csrc/integrate.cu (counterpart of f3d_gaus_tpu/ops/integrate.py), and of
 the preprocess of an undifferentiated render csrc/preprocess.cu (no
-counterpart: XLA fuses that code for the JAX package).
+counterpart: XLA fuses that code for the JAX package), and of the stage cap
+planner csrc/footprint.cu (no counterpart: the JAX package's caps are
+static).
 
 Each kernel source is compiled with nvcc for sm_90a into a shared library
 with a plain C interface at the first CUDA call (all at once, one nvcc
@@ -27,13 +29,15 @@ window.  `composite_fwd` and `composite_bwd` launch it and then the
 compositing or backward pass over the set bits.  `integrate` launches the
 field query.  `preprocess` launches the per-Gaussian preprocess, which
 reads its camera from a row in device memory, and writes the tables
-compositing reads.  Every wrapper accepts only CUDA tensors.
+compositing reads.  `footprint_need` counts what binning a render stage
+needs from the stage's footprints, and reads the two counts back.  Every
+wrapper accepts only CUDA tensors.
 A band of a frame (rasterize.render(tile_rows=...)) launches the same
 kernels with the statics' row_off, the global tile row of the band's
 first row; the rays keep the full frame's half width and height.
 While tracing is on (utils.profiling) each launch counts under
-`launches.decide`, `launches.fwd`, `launches.bwd`, `launches.integrate` or
-`launches.preprocess`.
+`launches.decide`, `launches.fwd`, `launches.bwd`, `launches.integrate`,
+`launches.preprocess` or `launches.footprint`.
 """
 from __future__ import annotations
 
@@ -53,12 +57,14 @@ from ..utils import profiling
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {"decide": CSRC / "gof_decide.cu", "fwd": CSRC / "raster_fwd.cu",
            "bwd": CSRC / "raster_bwd.cu", "integrate": CSRC / "integrate.cu",
-           "preprocess": CSRC / "preprocess.cu"}
+           "preprocess": CSRC / "preprocess.cu",
+           "footprint": CSRC / "footprint.cu"}
 # each library's C entry points, in the order its source defines them
 ENTRY = {"decide": ("f3d_gof_decide",), "fwd": ("f3d_raster_fwd",),
          "bwd": ("f3d_raster_bwd",),
          "integrate": ("f3d_integrate_prep", "f3d_integrate"),
-         "preprocess": ("f3d_preprocess",)}
+         "preprocess": ("f3d_preprocess",),
+         "footprint": ("f3d_footprint_need",)}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -149,14 +155,15 @@ _ARGTYPES = {   # by entry point
                       _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "f3d_preprocess": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                        _P, _P],
+    "f3d_footprint_need": [_I, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P],
 }
 
 
 def load(rebuild: bool = False) -> dict:
     """Build (once per build_key, or anew with `rebuild`) and load the
     kernel libraries: {'decide': CDLL, 'fwd': CDLL, 'bwd': CDLL,
-    'integrate': CDLL, 'preprocess': CDLL}.  The nvcc runs go in parallel;
-    any failure raises with its log."""
+    'integrate': CDLL, 'preprocess': CDLL, 'footprint': CDLL}.  The nvcc
+    runs go in parallel; any failure raises with its log."""
     global _libs, build_log
     if _libs is not None and not rebuild:
         return _libs
@@ -447,7 +454,7 @@ def _integrate_launch(rows, keys, perm, point_list, tile_start, tile_count,
     return out
 
 
-CAMERA_FLOATS = 43   # csrc/preprocess.cu:kCameraFloats
+CAMERA_FLOATS = 43   # csrc/screen.cuh:kCameraFloats
 
 
 def camera_scalars(camera, kernel_size: float = 0.0,
@@ -468,6 +475,24 @@ def camera_scalars(camera, kernel_size: float = 0.0,
                                 1.3 * camera.tan_fovx, 1.3 * camera.tan_fovy,
                                 kernel_size, scale_modifier, camera.width,
                                 camera.height)])
+
+
+def camera_rows(camera, world_views, full_projs, cam_centers=None,
+                kernel_size: float = 0.0) -> np.ndarray:
+    """A (V, CAMERA_FLOATS) float32 array whose row v is camera_scalars of
+    `camera` with view v's world_view, full_proj and cam_center (zeros
+    where cam_centers is None): V cameras that share the size, tangents
+    and kernel_size, each row bit for bit its camera's."""
+    wv = np.asarray(world_views, np.float32)
+    V = wv.shape[0]
+    centers = (np.zeros((V, 3), np.float32) if cam_centers is None
+               else np.asarray(cam_centers, np.float32).reshape(V, 3))
+    # the 35 values of world_view, full_proj and cam_center differ by view;
+    # the scalars after them do not
+    tail = np.asarray(camera_scalars(camera, kernel_size)[35:], np.float32)
+    return np.concatenate(
+        [wv.reshape(V, 16), np.asarray(full_projs, np.float32).reshape(V, 16),
+         centers, np.broadcast_to(tail, (V, len(tail)))], 1)
 
 
 def preprocess(means, scales, quats, opacities, shs, sh_degree: int, camera,
@@ -528,3 +553,51 @@ def preprocess(means, scales, quats, opacities, shs, sh_degree: int, camera,
         raise RuntimeError(f"preprocess kernel launch failed: CUDA error {err}")
     profiling.count("launches.preprocess")
     return feat, extra, depths, radii
+
+
+def footprint_need(xyz, scaling, rotation, world_views, full_projs, camera,
+                   kernel_size: float, grid_x: int, grid_y: int) -> dict:
+    """binning.footprint_need in one launch of csrc/footprint.cu and its
+    reduction: {'pairs': the most (Gaussian, tile) pairs of any (batch
+    element, view), 'tile': the fullest tile's Gaussians of any}, exactly
+    what the plain version binning._footprint_need_impl counts.  xyz,
+    scaling (B, P, 3) and rotation (B, P, 4) must be CUDA tensors, float32
+    and contiguous; world_views and full_projs V >= 1 (4, 4) matrices;
+    `camera` gives the size and field of view all V share, grid_x and
+    grid_y its frame's tiles (binning's).  The cameras go up as a
+    camera_rows table; the one host read is the two counts."""
+    if xyz.dim() != 3:
+        raise ValueError(f"xyz must be (B, P, 3), got {tuple(xyz.shape)}")
+    B, P = xyz.shape[:2]
+    _check("xyz", xyz, torch.float32, (B, P, 3))
+    _check("scaling", scaling, torch.float32, (B, P, 3))
+    _check("rotation", rotation, torch.float32, (B, P, 4))
+    dev = xyz.device
+    for name, t in (("scaling", scaling), ("rotation", rotation)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, xyz on {dev}")
+    rows = camera_rows(camera, world_views, full_projs,
+                       kernel_size=kernel_size)
+    V = rows.shape[0]
+    if B == 0 or V == 0:
+        raise ValueError(f"footprint_need needs a batch element and a view, "
+                         f"got B = {B}, V = {V}")
+    cells = (grid_x + 1) * (grid_y + 1)
+    # the two counts, each (element, view)'s pairs, then its difference
+    # grid of int32 cells
+    scratch = torch.empty(2 + B * V + -(-B * V * cells // 2),
+                          dtype=torch.int64, device=dev)
+    table = upload(rows, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = load()["footprint"].f3d_footprint_need(
+        _device_index(dev), xyz.data_ptr(), scaling.data_ptr(),
+        rotation.data_ptr(), B, P, table.data_ptr(), V, grid_x, grid_y,
+        scratch.data_ptr(), stream)
+    if err != 0:
+        hint = (f" (a {camera.width} x {camera.height} frame's tile grid "
+                "must fit in a block's shared memory)" if err == 1 else "")
+        raise RuntimeError(
+            f"footprint kernel launch failed: CUDA error {err}{hint}")
+    profiling.count("launches.footprint")
+    pairs, tile = scratch[:2].tolist()
+    return {"pairs": pairs, "tile": tile}

@@ -77,15 +77,9 @@ def camera_table(world_views, full_projs, cam_centers, cfg: PipelineConfig,
     V = wv.shape[0]
     table = np.zeros((V, ROW_FLOATS), np.float32)
     if V:
-        # the 35 values of world_view, full_proj and cam_center differ by
-        # view; the scalars after them do not
         cam = _camera(wv[0], full_projs[0], cam_centers[0], cfg)
-        tail = cuda_raster.camera_scalars(cam, cfg.kernel_size)[35:]
-        table[:, :CAMERA_FLOATS] = np.concatenate(
-            [wv.reshape(V, 16), np.asarray(full_projs, np.float32).reshape(
-                V, 16), np.asarray(cam_centers, np.float32).reshape(V, 3),
-             np.broadcast_to(np.asarray(tail, np.float32), (V, len(tail)))],
-            1)
+        table[:, :CAMERA_FLOATS] = cuda_raster.camera_rows(
+            cam, wv, full_projs, cam_centers, cfg.kernel_size)
         table[:, C2W_OFFSET:] = np.linalg.inv(
             wv.transpose(0, 2, 1)).astype(np.float32).reshape(V, 16)
     return upload(table, torch.device(device))

@@ -182,9 +182,9 @@ def _composed_scalars(camera, kernel_size, scale_modifier):
 def test_camera_scalars_match_the_composed_route(kind):
     """cuda_raster.camera_scalars, the kernel's camera arguments, are the
     f32 values of the composed route's own expressions, in
-    csrc/preprocess.cu's Camera order, for a field of view given as a
-    Python float or as an np.float32 and at an odd kernel_size and
-    scale_modifier."""
+    csrc/screen.cuh's Camera order (which preprocess.cu includes), for a
+    field of view given as a Python float or as an np.float32 and at an
+    odd kernel_size and scale_modifier."""
     cam = torch_cases.orbit_camera(64, 48)
     if kind == "float32_fov":
         cam = cam._replace(tan_fovx=np.float32(0.1234567),
@@ -198,4 +198,6 @@ def test_camera_scalars_match_the_composed_route(kind):
     assert got == _composed_scalars(cam, ks, sm)
     assert all(float(np.float32(v)) == v for v in got)
     src = cuda_raster.SOURCES["preprocess"].read_text()
-    assert f"kCameraFloats = {cuda_raster.CAMERA_FLOATS};" in src
+    assert '#include "screen.cuh"' in src
+    header = (cuda_raster.CSRC / "screen.cuh").read_text()
+    assert f"kCameraFloats = {cuda_raster.CAMERA_FLOATS};" in header
