@@ -13,6 +13,9 @@ resulting `Camera` matrices into tensors on the render device.  A numpy copy
 of f3d_gaus_tpu/core/cameras.py (that package's import chain pulls in JAX).
 `plucker_rays` (no JAX counterpart) builds the per-pixel rays of posed input
 views on their tensors' device, as GS-LRM's tokenizer reads them.
+`pose_encoding_to_cameras` (no JAX counterpart) turns VGGT's camera
+encoding, which AnySplat predicts, into this module's row-vector cameras,
+on tensors.
 """
 from __future__ import annotations
 
@@ -259,3 +262,51 @@ def plucker_rays(world_view: torch.Tensor, tan_fovx: float, tan_fovy: float,
     d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
     o_px = o[..., None, None, :].expand_as(d)
     return o, d, torch.cat([torch.linalg.cross(o_px, d, dim=-1), d], -1)
+
+
+def quat_xyzw_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) of quaternions (..., 4) in VGGT's
+    scalar-last (x, y, z, w) order, which need not be unit: each is
+    divided by its squared norm, as VGGT's quat_to_mat does."""
+    i, j, k, r = q.unbind(-1)
+    two_s = 2.0 / (q * q).sum(-1)
+    o = torch.stack([
+        1 - two_s * (j * j + k * k), two_s * (i * j - k * r),
+        two_s * (i * k + j * r),
+        two_s * (i * j + k * r), 1 - two_s * (i * i + k * k),
+        two_s * (j * k - i * r),
+        two_s * (i * k - j * r), two_s * (j * k + i * r),
+        1 - two_s * (i * i + j * j)], -1)
+    return o.reshape(q.shape[:-1] + (3, 3))
+
+
+def pose_encoding_to_cameras(enc: torch.Tensor, znear: float,
+                             zfar: float) -> dict:
+    """Cameras of VGGT's `absT_quaR_FoV` encodings (..., 9): the
+    world-to-camera translation T (3), the rotation's quaternion (x, y, z,
+    w) and the vertical and horizontal fields of view (radians), in
+    OpenCV's camera axes (+x right, +y down, +z forward, as this module's
+    view space).  Returns tensors on enc's device: `world_view` and
+    `full_proj` (..., 4, 4) in the row-vector layout (full_proj with the
+    view's own tangents and the clip planes znear / zfar, as
+    projection_matrix builds it), `cam_centers` (..., 3), and `tan_fovx`,
+    `tan_fovy` (...)."""
+    T, q = enc[..., :3], enc[..., 3:7]
+    tan_y = torch.tan(enc[..., 7] / 2)
+    tan_x = torch.tan(enc[..., 8] / 2)
+    R = quat_xyzw_to_rotmat(q)             # x_cam = R x_world + T
+    lead = enc.shape[:-1]
+    wv = enc.new_zeros(lead + (4, 4))
+    wv[..., :3, :3] = R.transpose(-1, -2)
+    wv[..., 3, :3] = T
+    wv[..., 3, 3] = 1.0
+    proj_t = enc.new_zeros(lead + (4, 4))  # projection_matrix, transposed
+    proj_t[..., 0, 0] = 1.0 / tan_x
+    proj_t[..., 1, 1] = 1.0 / tan_y
+    proj_t[..., 2, 2] = (znear + zfar) / (zfar - znear)
+    proj_t[..., 3, 2] = -(zfar * znear) / (zfar - znear)
+    proj_t[..., 2, 3] = 1.0
+    centers = -(T[..., None, :] @ R)[..., 0, :]
+    return {"world_view": wv, "full_proj": wv @ proj_t,
+            "cam_centers": centers, "tan_fovx": tan_x, "tan_fovy": tan_y}
+

@@ -191,11 +191,12 @@ PLAN_CHUNK = 1 << 22      # (view, Gaussian) footprints per plain planning step
 
 @torch.no_grad()
 def footprint_need(xyz, scaling, rotation, world_views, full_projs, camera,
-                   kernel_size: float = 0.0) -> dict:
+                   kernel_size: float = 0.0, tangents=None) -> dict:
     """What binning (B, P) Gaussians at the (V, 4, 4) world_views /
     full_projs needs, exactly: {'pairs': the most (Gaussian, tile) pairs
     of any (batch element, view), 'tile': the fullest tile's Gaussians of
-    any}; `camera` gives the size and field of view all V share.  Counted
+    any}; `camera` gives the size all V share and, unless `tangents`
+    gives each view's (tan_fovx, tan_fovy), the field of view.  Counted
     from the footprints preprocess gives, with no binning and one host
     read: for CUDA tensors in one launch of csrc/footprint.cu and its
     reduction (cuda_raster.footprint_need, counted as
@@ -206,26 +207,34 @@ def footprint_need(xyz, scaling, rotation, world_views, full_projs, camera,
             xyz.contiguous(), scaling.contiguous(), rotation.contiguous(),
             world_views, full_projs, camera, kernel_size,
             (camera.width + BLOCK - 1) // BLOCK,
-            (camera.height + BLOCK - 1) // BLOCK)
+            (camera.height + BLOCK - 1) // BLOCK, tangents)
     return _footprint_need_impl(xyz, scaling, rotation, world_views,
-                                full_projs, camera, kernel_size)
+                                full_projs, camera, kernel_size, tangents)
 
 
 @torch.no_grad()
 def _footprint_need_impl(xyz, scaling, rotation, world_views, full_projs,
-                         camera, kernel_size: float = 0.0) -> dict:
+                         camera, kernel_size: float = 0.0,
+                         tangents=None) -> dict:
     """footprint_need's plain version, on any device: the footprints
     preprocess gives (gaussians.screen_footprints, bit for bit, PLAN_CHUNK
-    at a time), their pair counts (tile_rects) and tile occupancy
-    (tile_occupancy)."""
+    at a time, or one view at a time at its own tangents), their pair
+    counts (tile_rects) and tile occupancy (tile_occupancy)."""
     w, h = camera.width, camera.height
-    step = max(1, PLAN_CHUNK // max(xyz.shape[1], 1))
+    V = len(world_views)
+    if tangents is None:
+        step = max(1, PLAN_CHUNK // max(xyz.shape[1], 1))
+        chunks = [(i, camera) for i in range(0, V, step)]
+    else:
+        step = 1
+        chunks = [(i, camera._replace(tan_fovx=tx, tan_fovy=ty))
+                  for i, (tx, ty) in enumerate(tangents)]
     pairs, tiles = [], []
     for b in range(xyz.shape[0]):
-        for i in range(0, len(world_views), step):
+        for i, cam in chunks:
             m2d, radii = G.screen_footprints(
                 xyz[b], scaling[b], rotation[b], world_views[i:i + step],
-                full_projs[i:i + step], camera, kernel_size)
+                full_projs[i:i + step], cam, kernel_size)
             *_, count = tile_rects(m2d, radii, w, h)
             pairs.append(count.to(torch.int64).sum(-1).max())
             tiles.append(tile_occupancy(m2d, radii, w, h).max().long())

@@ -478,21 +478,30 @@ def camera_scalars(camera, kernel_size: float = 0.0,
 
 
 def camera_rows(camera, world_views, full_projs, cam_centers=None,
-                kernel_size: float = 0.0) -> np.ndarray:
+                kernel_size: float = 0.0, tangents=None) -> np.ndarray:
     """A (V, CAMERA_FLOATS) float32 array whose row v is camera_scalars of
     `camera` with view v's world_view, full_proj and cam_center (zeros
-    where cam_centers is None): V cameras that share the size, tangents
-    and kernel_size, each row bit for bit its camera's."""
+    where cam_centers is None) and, where `tangents` gives V (tan_fovx,
+    tan_fovy) pairs, view v's tangents (its focal lengths and clip
+    limits): V cameras that share the size and kernel_size, each row bit
+    for bit its camera's."""
     wv = np.asarray(world_views, np.float32)
     V = wv.shape[0]
     centers = (np.zeros((V, 3), np.float32) if cam_centers is None
                else np.asarray(cam_centers, np.float32).reshape(V, 3))
     # the 35 values of world_view, full_proj and cam_center differ by view;
-    # the scalars after them do not
-    tail = np.asarray(camera_scalars(camera, kernel_size)[35:], np.float32)
+    # the scalars after them only where the tangents do
+    if tangents is None:
+        tail = np.asarray(camera_scalars(camera, kernel_size)[35:],
+                          np.float32)
+        tail = np.broadcast_to(tail, (V, len(tail)))
+    else:
+        tail = np.asarray([camera_scalars(camera._replace(
+            tan_fovx=tx, tan_fovy=ty), kernel_size)[35:]
+            for tx, ty in tangents], np.float32).reshape(V, -1)
     return np.concatenate(
         [wv.reshape(V, 16), np.asarray(full_projs, np.float32).reshape(V, 16),
-         centers, np.broadcast_to(tail, (V, len(tail)))], 1)
+         centers, tail], 1)
 
 
 def preprocess(means, scales, quats, opacities, shs, sh_degree: int, camera,
@@ -556,16 +565,18 @@ def preprocess(means, scales, quats, opacities, shs, sh_degree: int, camera,
 
 
 def footprint_need(xyz, scaling, rotation, world_views, full_projs, camera,
-                   kernel_size: float, grid_x: int, grid_y: int) -> dict:
+                   kernel_size: float, grid_x: int, grid_y: int,
+                   tangents=None) -> dict:
     """binning.footprint_need in one launch of csrc/footprint.cu and its
     reduction: {'pairs': the most (Gaussian, tile) pairs of any (batch
     element, view), 'tile': the fullest tile's Gaussians of any}, exactly
     what the plain version binning._footprint_need_impl counts.  xyz,
     scaling (B, P, 3) and rotation (B, P, 4) must be CUDA tensors, float32
     and contiguous; world_views and full_projs V >= 1 (4, 4) matrices;
-    `camera` gives the size and field of view all V share, grid_x and
-    grid_y its frame's tiles (binning's).  The cameras go up as a
-    camera_rows table; the one host read is the two counts."""
+    `camera` gives the size all V share and, unless `tangents` gives each
+    view's (tan_fovx, tan_fovy), the field of view, grid_x and grid_y its
+    frame's tiles (binning's).  The cameras go up as a camera_rows table;
+    the one host read is the two counts."""
     if xyz.dim() != 3:
         raise ValueError(f"xyz must be (B, P, 3), got {tuple(xyz.shape)}")
     B, P = xyz.shape[:2]
@@ -577,7 +588,7 @@ def footprint_need(xyz, scaling, rotation, world_views, full_projs, camera,
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, xyz on {dev}")
     rows = camera_rows(camera, world_views, full_projs,
-                       kernel_size=kernel_size)
+                       kernel_size=kernel_size, tangents=tangents)
     V = rows.shape[0]
     if B == 0 or V == 0:
         raise ValueError(f"footprint_need needs a batch element and a view, "

@@ -99,12 +99,13 @@ def cycle_aggregate(model, cfg: PipelineConfig, gaussians, agg, bg):
 
 
 @profiling.spanned("plan_caps")
-def stage_caps(gaussians, world_views, full_projs,
-               cfg: PipelineConfig) -> PipelineConfig:
+def stage_caps(gaussians, world_views, full_projs, cfg: PipelineConfig,
+               tangents=None) -> PipelineConfig:
     """cfg with exactly the caps one render stage needs: what binning
     `gaussians` (B, P, ...) at the (V, 4, 4) world_views / full_projs at
-    cfg's frame size (`resolution` by `frame_height`), both tangents and
-    kernel_size needs (binning.footprint_need), with no headroom and no
+    cfg's frame size (`resolution` by `frame_height`), both tangents (or
+    each view's (tan_fovx, tan_fovy) of `tangents`) and kernel_size needs
+    (binning.footprint_need), with no headroom and no
     floor; pair_cap rounded up to binning.suggest_pair_cap's bucket,
     max_per_tile to a multiple of 256, so rasterize.bin_band keeps 256
     lanes.  A render
@@ -118,7 +119,7 @@ def stage_caps(gaussians, world_views, full_projs,
                          cfg.tan_fovy)
     need = binning.footprint_need(gaussians["xyz"], gaussians["scaling"],
                                   gaussians["rotation"], wv, fp, cam,
-                                  cfg.kernel_size)
+                                  cfg.kernel_size, tangents)
     profiling.count("caps.plans")
     return dataclasses.replace(
         cfg, pair_cap=binning.suggest_pair_cap(need["pairs"]),

@@ -22,6 +22,12 @@ render, and the result is the eager route's bit for bit; the host issues
 one graph launch a view in place of about a hundred kernels, and the stage
 makes no host sync.  Every other stage (training's differentiated renders,
 CPU tensors, single views) renders eagerly.
+
+A stage's views may each have their own tangents (`tangents`: the cameras
+a pose-free model predicts).  The decision and compositing kernels take
+the focal lengths as launch arguments, and depth_to_normal's pixel rays
+are built from them, both of which a captured graph keeps, so a stage
+whose views differ in their tangents renders eagerly.
 """
 from __future__ import annotations
 
@@ -59,40 +65,45 @@ def _c2w(world_view, device) -> torch.Tensor:
     return upload(_c2w_host(world_view), device)
 
 
-def _camera(world_view, full_proj, cam_center, cfg: PipelineConfig):
+def _camera(world_view, full_proj, cam_center, cfg: PipelineConfig,
+            tangents=None):
     """A serving camera: cfg's frame width (`resolution`) and height, and
-    both its tangents."""
+    both its tangents, or the view's own (tan_fovx, tan_fovy)."""
+    tan_x, tan_y = (cfg.tan_fov, cfg.tan_fovy) if tangents is None \
+        else tangents
     return Camera(world_view, full_proj, cam_center, cfg.resolution,
-                  cfg.frame_height, cfg.tan_fov, cfg.tan_fovy)
+                  cfg.frame_height, tan_x, tan_y)
 
 
 def camera_table(world_views, full_projs, cam_centers, cfg: PipelineConfig,
-                 device) -> torch.Tensor:
+                 device, tangents=None) -> torch.Tensor:
     """A stage's cameras on `device`, uploaded once with no host sync: a
     (V, ROW_FLOATS) float32 table whose row v holds view v's
-    cuda_raster.camera_scalars (at cfg's frame size, tangents and
-    kernel_size) in [:CAMERA_FLOATS] and its camera-to-world, row-major,
-    in [C2W_OFFSET:], each bit for bit what the view's own camera gives."""
+    cuda_raster.camera_scalars (at cfg's frame size and kernel_size, and
+    cfg's tangents or view v's (tan_fovx, tan_fovy) of `tangents`) in
+    [:CAMERA_FLOATS] and its camera-to-world, row-major, in [C2W_OFFSET:],
+    each bit for bit what the view's own camera gives."""
     wv = np.asarray(world_views, np.float32)
     V = wv.shape[0]
     table = np.zeros((V, ROW_FLOATS), np.float32)
     if V:
         cam = _camera(wv[0], full_projs[0], cam_centers[0], cfg)
         table[:, :CAMERA_FLOATS] = cuda_raster.camera_rows(
-            cam, wv, full_projs, cam_centers, cfg.kernel_size)
+            cam, wv, full_projs, cam_centers, cfg.kernel_size, tangents)
         table[:, C2W_OFFSET:] = np.linalg.inv(
             wv.transpose(0, 2, 1)).astype(np.float32).reshape(V, 16)
     return upload(table, torch.device(device))
 
 
 _RAYS: dict = {}
+_RAYS_KEPT = 16     # predicted cameras bring new fields of view each request
 
 
 def _pixel_rays(width, height, tan_fovx, tan_fovy, device):
     """The (H, W, 3) camera rays of the pixels depth_to_normal
-    backprojects, built once a size, field of view and device (one built
-    inside a CUDA graph's capture holds nothing until a replay, so it is
-    not kept)."""
+    backprojects, built once a size, field of view and device, the last
+    _RAYS_KEPT of them kept (one built inside a CUDA graph's capture holds
+    nothing until a replay, so it is not kept)."""
     key = (width, height, tan_fovx, tan_fovy, device)
     pts = _RAYS.get(key)
     if pts is not None:
@@ -106,6 +117,8 @@ def _pixel_rays(width, height, tan_fovx, tan_fovy, device):
     pts = torch.stack([(gx - width / 2.0) / fx, (gy - height / 2.0) / fy,
                        torch.ones_like(gx)], -1)
     if device.type != "cuda" or not torch.cuda.is_current_stream_capturing():
+        if len(_RAYS) >= _RAYS_KEPT:
+            del _RAYS[next(iter(_RAYS))]
         _RAYS[key] = pts
     return pts
 
@@ -153,8 +166,8 @@ def _render(gaussians: dict, b: int, cam, row, bg, cfg: PipelineConfig):
     c2w = row[C2W_OFFSET:].view(4, 4)
     normal_world = (c2w[:3, :3] @ rn.reshape(3, -1)).reshape(rn.shape)
     dn = _depth_to_normal(c2w, out["rendered_depth"],
-                          _pixel_rays(cfg.resolution, cfg.frame_height,
-                                      cfg.tan_fov, cfg.tan_fovy, rn.device))
+                          _pixel_rays(cam.width, cam.height, cam.tan_fovx,
+                                      cam.tan_fovy, rn.device))
     return {
         "render": out["render"],
         "rendered_normal": normal_world,
@@ -266,22 +279,28 @@ def _graph_stage(gaussians: dict, cams: list, table, bg,
 
 
 def render_views_batched(gaussians: dict, world_views, full_projs,
-                         cam_centers, bg, cfg: PipelineConfig, device=None):
+                         cam_centers, bg, cfg: PipelineConfig, device=None,
+                         tangents=None):
     """Render every (batch element, view) pair.
 
     gaussians: dict of (B, P, ...) tensors; world_views/full_projs:
-    (V, 4, 4) and cam_centers (V, 3) numpy arrays; bg: (3,).  Returns a
-    dict of (B, V, ...) tensors, including the (B, V) bool `overflow` map,
-    which callers must check: a static-cap truncation is otherwise silent.
-    A stage of two or more views whose renders take the preprocess kernel
-    runs as CUDA graphs (module docstring), bit for bit the eager renders."""
+    (V, 4, 4) and cam_centers (V, 3) numpy arrays; bg: (3,); tangents:
+    None (every view at cfg's tangents) or each view's (tan_fovx,
+    tan_fovy).  Returns a dict of (B, V, ...) tensors, including the
+    (B, V) bool `overflow` map, which callers must check: a static-cap
+    truncation is otherwise silent.  A stage of two or more views whose
+    renders take the preprocess kernel and share their tangents runs as
+    CUDA graphs (module docstring), bit for bit the eager renders."""
     dev = resolve_device(device, gaussians["xyz"])
     gaussians = {k: v.to(dev) for k, v in gaussians.items()}
     bg = torch.as_tensor(bg, dtype=torch.float32, device=dev)
-    cams = [_camera(*c, cfg) for c in zip(world_views, full_projs,
-                                           cam_centers)]
-    table = camera_table(world_views, full_projs, cam_centers, cfg, dev)
-    if _graph_route(dev, gaussians, len(cams)):
+    per_view = [None] * len(world_views) if tangents is None else tangents
+    cams = [_camera(*c, cfg, t) for c, t in zip(
+        zip(world_views, full_projs, cam_centers), per_view)]
+    table = camera_table(world_views, full_projs, cam_centers, cfg, dev,
+                         tangents)
+    one_fov = len({(c.tan_fovx, c.tan_fovy) for c in cams}) == 1
+    if one_fov and _graph_route(dev, gaussians, len(cams)):
         return _graph_stage(gaussians, cams, table, bg, cfg)
     B = gaussians["xyz"].shape[0]
     rows = []

@@ -200,7 +200,8 @@ def test_run_gslrm_guard_doubles_caps(monkeypatch):
     """With the planner patched to return the caller's tiny caps the orbit
     overflows; the caps double from the caller's until it fits, each
     doubling a fallback, and the Gaussians are predicted once."""
-    monkeypatch.setattr(Tcycle, "stage_caps", lambda g, wv, fp, c: c)
+    monkeypatch.setattr(Tcycle, "stage_caps",
+                        lambda g, wv, fp, c, tangents=None: c)
     model, _ = _models()
     images, wv = _inputs()
     msgs = []

@@ -64,8 +64,8 @@ def test_footprint_need_on_cpu_takes_the_plain_version(monkeypatch):
 
 def test_footprint_need_takes_the_kernel_for_cuda_tensors(monkeypatch):
     """A CUDA tensor goes to cuda_raster.footprint_need, made contiguous,
-    with the cameras and kernel_size as given and the frame's tile grid
-    from binning.BLOCK, and its count is returned unchanged; the plain
+    with the cameras, kernel_size and per-view tangents (None) as given
+    and the frame's tile grid from binning.BLOCK, and its count is returned unchanged; the plain
     version is not run."""
     seen = {}
 
@@ -87,7 +87,7 @@ def test_footprint_need_takes_the_kernel_for_cuda_tensors(monkeypatch):
                             0.3)
     assert got == {"pairs": 7, "tile": 3}
     assert seen["args"] == ("xyz-contiguous", "s-contiguous", "q-contiguous",
-                            wv, fp, cam, 0.3, 3, 2)
+                            wv, fp, cam, 0.3, 3, 2, None)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
